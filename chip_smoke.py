@@ -1,4 +1,4 @@
-"""Chip smoke test: drive the PyTorch port's monocular VO path on one GPU.
+"""Chip smoke test: drive the PyTorch port's monocular SLAM on one GPU.
 
     python3 chip_smoke.py
 
@@ -8,16 +8,27 @@ Phases (any failure raises and the script exits non-zero):
      (bit-exact) at the shapes the main path gives it, and time both;
   3. render an EuRoC-cadence 752x480, f=458 sequence of 160 frames (numpy),
      with one sudden exposure drop, and run System.track_monocular over it
-     on the card; count kernel launches;
+     on the card with the default configuration (BoW, relocalization and
+     loop closing on, the shipped vocabulary); count kernel launches;
   4. check the result: frames OK after init, new keyframes, the feature
      fallback ladder recovering the under-exposed frame, 7-DoF ATE against
-     the ground truth, and the frame step on the card against the same step
-     on the CPU for a few frames.
+     the ground truth, every alive keyframe in the BoW index, and the frame
+     step on the card against the same step on the CPU for a few frames;
+  5. global BA on two copies of the final map, card vs CPU;
+  6. relocalization: black frames until LOST, then an earlier view, which
+     must relocalize near its true pose and keep tracking (kernel launches
+     counted on this path too);
+  7. PnP and Sim3 RANSAC on the same hypotheses, card vs CPU;
+  8. loop correction at EuRoC size: a 13-keyframe chain whose last keyframe
+     sees the first one's landmarks as drifted duplicates; compute_sim3 must
+     recover the drift and correct() must close the seam and fuse them, the
+     same on the card and on the CPU.
 The last line is {"ok": true, "device": {...}}. Needs CUDA; imports nothing
 of JAX.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -31,6 +42,9 @@ N_FRAMES = 160
 # tracking (photometric) loses it and the feature fallback ladder (ORB,
 # invariant to it) must recover the pose.
 DARK_FRAME, DARK_GAIN = 80, 0.4
+# relocalization: revisit the view of frame 120 after a blackout; the bound
+# on the recovered camera centre is 1% of the path (~0.083 on 8.33)
+REVISIT, RELOC_BOUND = 120, 0.01
 LEVEL_SHAPES = [(480, 752), (240, 376), (120, 188), (60, 94)]
 
 
@@ -115,17 +129,20 @@ def check_fast_kernel(frame):
             "max_abs_err": max_err, "ms": rows[0][1], "plain_ms": rows[0][2]}
 
 
-def run_main_path(frames, device):
-    """System.track_monocular over the frames; returns (system, states,
-    frames on which the fallback ladder ran, seconds)."""
+def euroc_camera():
     from ygz_tpu_torch.geometry.camera import Camera
-    from ygz_tpu_torch.system import System, Sensor
-    from ygz_tpu_torch.frontend.tracker import TrackerConfig
 
-    cam = Camera.make(F, F, W / 2.0 - 0.5, H / 2.0 - 0.5, W, H)
-    cfg = TrackerConfig(enable_loop_closing=False,
-                        enable_relocalization=False, async_mapping=False)
-    system = System(cam, Sensor.MONOCULAR, config=cfg, device=device)
+    return Camera.make(F, F, W / 2.0 - 0.5, H / 2.0 - 0.5, W, H)
+
+
+def run_main_path(frames, device, cfg=None):
+    """System.track_monocular over the frames (default TrackerConfig unless
+    given); returns (system, states, frames on which the fallback ladder
+    ran, seconds)."""
+    from ygz_tpu_torch.system import System, Sensor
+
+    system = System(euroc_camera(), Sensor.MONOCULAR, config=cfg,
+                    device=device)
     states, ladder = [], []
     t0 = time.perf_counter()
     for i, img in enumerate(frames):
@@ -137,8 +154,10 @@ def run_main_path(frames, device):
 
 def check_result(system, states, ladder, poses):
     """Frames OK after init, keyframes, the fallback ladder's recovery of
-    the dark frame, 7-DoF ATE."""
-    from ygz_tpu_torch.eval.ate import ate_rmse
+    the dark frame, 7-DoF ATE, the BoW index. Returns the 7-DoF alignment
+    (s, R, t) of the estimated camera centres onto the ground truth and the
+    path length."""
+    from ygz_tpu_torch.eval.ate import ate_rmse, horn_align
 
     if "OK" not in states:
         raise RuntimeError("the tracker never initialized")
@@ -177,6 +196,21 @@ def check_result(system, states, ladder, poses):
         raise RuntimeError(f"only {n_new_kf} keyframes beyond the initial two")
     if not rmse < 0.03 * length:
         raise RuntimeError(f"ATE {rmse:.5f} >= 3% of the path ({length:.3f})")
+    tr = system.tracker
+    smap = system.map
+    n = smap.n_kf
+    alive = smap.kf_valid[:n]
+    indexed = tr.bow_index.kf_valid[:n]
+    print(f"BoW index: {int(indexed.sum())} keyframes for {int(alive.sum())} "
+          f"alive; loop detect calls {tr.loop_closer.n_detect}, loops closed "
+          f"{tr.n_loops_closed}")
+    if (alive & ~indexed).any() or (indexed & ~alive).any():
+        raise RuntimeError(f"BoW index {np.nonzero(indexed)[0]} != alive "
+                           f"keyframes {np.nonzero(alive)[0]}")
+    if tr.loop_closer.n_detect != n - 2:
+        raise RuntimeError(f"{tr.loop_closer.n_detect} detect calls for "
+                           f"{n - 2} new keyframes")
+    return horn_align(est, gt, with_scale=True), length
 
 
 def check_step_vs_cpu(system, frames):
@@ -217,6 +251,303 @@ def check_step_vs_cpu(system, frames):
         raise RuntimeError("frame step on the card disagrees with the CPU")
 
 
+def check_global_ba(system):
+    """Global BA on two copies of the final map, on the card and on the
+    CPU: keyframe rotations within 0.01 deg; translations and points within
+    1e-3 once the CPU map is brought to the card map's scale. Only
+    keyframe 0 is fixed (the JAX package's gauge), so the monocular scale
+    is free, and the two devices' float32 sums, in another order, settle
+    it up to ~1e-3 apart, which alone moves a point 2 units out by 2e-3;
+    the scale must agree within 1e-2."""
+    from ygz_tpu_torch.backend.mapping import LocalMapper
+    from ygz_tpu_torch.eval.ate import rotation_angle_deg
+
+    smap = system.map
+    pyr = smap.kf_pyr
+    smap.kf_pyr = [None] * len(pyr)        # global BA reads no pyramid
+    maps = [copy.deepcopy(smap), copy.deepcopy(smap)]
+    smap.kf_pyr = pyr
+    ms = []
+    for dev, m in zip(("cuda", "cpu"), maps):
+        mapper = LocalMapper(system.cam, device=dev)
+        t0 = time.perf_counter()
+        mapper.global_ba(m)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    a, b = maps
+    kfs = np.nonzero(a.kf_valid[: a.n_kf])[0]
+    pts = np.nonzero(a.pt_valid[: a.n_pt])[0]
+    if not (np.isfinite(a.pt_xyz[pts]).all() and np.isfinite(a.kf_t).all()):
+        raise RuntimeError("global BA on the card gave non-finite values")
+    rot = max(rotation_angle_deg(a.kf_R[k], b.kf_R[k]) for k in kfs)
+    raw = (float(np.abs(a.kf_t[kfs] - b.kf_t[kfs]).max()),
+           float(np.abs(a.pt_xyz[pts] - b.pt_xyz[pts]).max()))
+    # the one free gauge: the scale taking the CPU map onto the card map
+    s = float((a.kf_t[kfs] * b.kf_t[kfs]).sum() / (b.kf_t[kfs] ** 2).sum())
+    dt = float(np.abs(a.kf_t[kfs] - s * b.kf_t[kfs]).max())
+    dp = float(np.abs(a.pt_xyz[pts] - s * b.pt_xyz[pts]).max())
+    moved = float(np.abs(a.pt_xyz[pts] - smap.pt_xyz[pts]).max())
+    print(f"global BA ({len(kfs)} keyframes, {len(pts)} points): card "
+          f"{ms[0]:.2f} ms, CPU {ms[1]:.2f} ms; card vs CPU: rotation "
+          f"{rot:.2e} deg; scale card/CPU {s:.7f}; at that scale "
+          f"translation {dt:.2e}, points {dp:.2e} (raw {raw[0]:.2e}, "
+          f"{raw[1]:.2e}; points moved up to {moved:.2e})")
+    if rot > 0.01 or abs(s - 1.0) > 1e-2 or dt > 1e-3 or dp > 1e-3:
+        raise RuntimeError("global BA on the card disagrees with the CPU")
+
+
+def check_relocalization(system, frames, poses, align, length):
+    """Three black frames must lose the tracker; the view of frame REVISIT
+    must then relocalize it within 3 tries, its camera centre (through the
+    main run's 7-DoF alignment) within RELOC_BOUND of the path of the true
+    one, and the 10 frames after it must all track. Returns the FAST
+    launches on this path."""
+    from ygz_tpu_torch.ops import fast
+
+    ts = len(system.trajectory) * 0.05
+    fast.fast_score_map.launches = 0
+    black = np.zeros_like(frames[0])
+    for _ in range(3):
+        state = system.track_monocular(black, ts)[0]
+        ts += 0.05
+    if state != "LOST":
+        raise RuntimeError(f"black frames left the tracker {state}")
+    attempts = []
+    for _ in range(3):
+        before = fast.fast_score_map.launches
+        t0 = time.perf_counter()
+        state, T = system.track_monocular(frames[REVISIT], ts)
+        attempts.append((1e3 * (time.perf_counter() - t0),
+                         fast.fast_score_map.launches - before))
+        ts += 0.05
+        if state == "OK":
+            break
+    else:
+        raise RuntimeError(f"no relocalization in 3 tries on the view of "
+                           f"frame {REVISIT}")
+    s, R, t = align
+    c_est = s * R @ (-T[:3, :3].T @ T[:3, 3]) + t
+    R_gt, t_gt = poses[REVISIT]
+    err = float(np.linalg.norm(c_est - (-R_gt.T @ t_gt)))
+    forward = []
+    for k in range(1, 11):
+        forward.append(system.track_monocular(frames[REVISIT + k], ts)[0])
+        ts += 0.05
+    launches = fast.fast_score_map.launches
+    print(f"relocalization: LOST after 3 black frames; OK on try "
+          f"{len(attempts)} at the view of frame {REVISIT}: camera centre "
+          f"{err:.5f} from the truth (bound {RELOC_BOUND * length:.5f}); "
+          f"attempts (ms, FAST launches) {attempts}; next 10 frames "
+          f"{forward}; FAST launches on this path {launches}; "
+          f"'relocalize' stage mean "
+          f"{system.tracker.timer.mean_ms()['relocalize']:.2f} ms")
+    if err > RELOC_BOUND * length:
+        raise RuntimeError(f"relocalized {err:.5f} from the true pose")
+    if forward != ["OK"] * 10:
+        raise RuntimeError(f"tracking after relocalization: {forward}")
+    if launches == 0 or attempts[-1][1] < 8:
+        raise RuntimeError("relocalization never launched the fast_score "
+                           "kernel")
+    return launches
+
+
+def check_ransac():
+    """PnP (512 matches) and Sim3 (200 pairs) RANSAC, 30% outliers each,
+    on the same hypotheses (drawn once on a CPU generator) on the card and
+    on the CPU: R within 0.01 deg, t and s within 1e-3, inlier masks >= 99%
+    equal, and both recover the truth."""
+    import torch
+    from ygz_tpu_torch.backend.pnp import pnp_ransac
+    from ygz_tpu_torch.eval.ate import rotation_angle_deg
+    from ygz_tpu_torch.geometry.lie import so3_exp
+    from ygz_tpu_torch.geometry.sim3 import sim3_ransac
+    from ygz_tpu_torch.geometry.twoview import draw_samples
+
+    rng = np.random.default_rng(5)
+    g = torch.Generator()
+    g.manual_seed(0)
+    intr = (F, F, W / 2.0 - 0.5, H / 2.0 - 0.5)
+    n, n_out = 512, 154
+    R = so3_exp(torch.tensor([0.1, -0.15, 0.05])).numpy()
+    t = np.array([0.3, -0.2, 0.4], np.float32)
+    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                  rng.uniform(4, 9, n)], 1).astype(np.float32)
+    Xc = X @ R.T + t
+    uv = np.stack([F * Xc[:, 0] / Xc[:, 2] + intr[2],
+                   F * Xc[:, 1] / Xc[:, 2] + intr[3]], 1).astype(np.float32)
+    uv += rng.normal(0, 0.5, uv.shape).astype(np.float32)
+    uv[:n_out] += rng.uniform(20, 80, (n_out, 2)).astype(np.float32)
+    valid = torch.ones(n, dtype=torch.bool)
+    idx = draw_samples(valid, 300, 4, g)
+    out, ms = [], []
+    for dev in ("cuda", "cpu"):
+        args = (torch.as_tensor(X, device=dev), torch.as_tensor(uv, device=dev),
+                valid.to(dev), intr)
+        t0 = time.perf_counter()
+        r = pnp_ransac(*args, samples=idx.to(dev))
+        out.append([a.cpu().numpy() for a in r])
+        ms.append(1e3 * (time.perf_counter() - t0))
+    (ok_g, R_g, t_g, in_g, _), (ok_c, R_c, t_c, in_c, _) = out
+    pnp = (rotation_angle_deg(R_g, R_c), float(np.abs(t_g - t_c).max()),
+           float((in_g == in_c).mean()))
+    pnp_truth = (rotation_angle_deg(R_g, R), float(np.abs(t_g - t).max()))
+    print(f"PnP RANSAC card vs CPU: rotation {pnp[0]:.2e} deg, translation "
+          f"{pnp[1]:.2e}, inliers {pnp[2]:.4f} equal; card vs truth "
+          f"{pnp_truth[0]:.4f} deg, {pnp_truth[1]:.2e}; card {ms[0]:.2f} ms, "
+          f"CPU {ms[1]:.2f} ms (first calls)")
+    if not (ok_g and ok_c) or pnp[0] > 0.01 or pnp[1] > 1e-3 \
+            or pnp[2] < 0.99:
+        raise RuntimeError("PnP RANSAC on the card disagrees with the CPU")
+    if pnp_truth[0] > 0.5 or pnp_truth[1] > 0.05 or in_g[:n_out].any():
+        raise RuntimeError("PnP RANSAC missed the true pose")
+
+    n, n_out = 200, 60
+    R = so3_exp(torch.tensor([0.2, -0.1, 0.3])).numpy()
+    t, s = np.array([0.5, -0.2, 0.1], np.float32), 1.1
+    Xa = rng.normal(size=(n, 3)).astype(np.float32) * 2
+    Xb = (s * Xa @ R.T + t).astype(np.float32)
+    Xb += rng.normal(0, 0.005, Xb.shape).astype(np.float32)
+    Xb[:n_out] += rng.uniform(0.5, 2, (n_out, 3)).astype(np.float32)
+    mask = torch.ones(n, dtype=torch.bool)
+    idx = draw_samples(mask, 300, 3, g)
+    out = []
+    for dev in ("cuda", "cpu"):
+        r = sim3_ransac(torch.as_tensor(Xa, device=dev),
+                        torch.as_tensor(Xb, device=dev), mask.to(dev),
+                        th_b=0.05, samples=idx.to(dev))
+        out.append([a.cpu().numpy() for a in r])
+    (R_g, t_g, s_g, in_g, _), (R_c, t_c, s_c, in_c, _) = out
+    sim = (rotation_angle_deg(R_g, R_c), float(np.abs(t_g - t_c).max()),
+           abs(float(s_g - s_c)), float((in_g == in_c).mean()))
+    print(f"Sim3 RANSAC card vs CPU: rotation {sim[0]:.2e} deg, translation "
+          f"{sim[1]:.2e}, scale {sim[2]:.2e}, inliers {sim[3]:.4f} equal; "
+          f"card scale {float(s_g):.5f} (truth {s})")
+    if sim[0] > 0.01 or sim[1] > 1e-3 or sim[2] > 1e-3 or sim[3] < 0.99:
+        raise RuntimeError("Sim3 RANSAC on the card disagrees with the CPU")
+    if rotation_angle_deg(R_g, R) > 0.1 or abs(float(s_g) - s) > 2e-3 \
+            or in_g[:n_out].any():
+        raise RuntimeError("Sim3 RANSAC missed the true similarity")
+
+
+def loop_scenario(vocab, seed=12):
+    """A 13-keyframe map at EuRoC geometry: KF0 binds 512 landmarks in
+    view, KF1-11 are a chain of 512-feature keyframes, and KF12 sees KF0's
+    landmarks again as drifted duplicates under a known Sim3, with KF0's
+    descriptors. Returns (map, BoW index, kf, cand, true Sim3, n)."""
+    import torch
+    from ygz_tpu_torch.backend.bow import BowIndex
+    from ygz_tpu_torch.backend.mapstate import SlamMap
+    from ygz_tpu_torch.geometry.lie import so3_exp
+
+    rng = np.random.default_rng(seed)
+    cx, cy = W / 2.0 - 0.5, H / 2.0 - 0.5
+    M = 1024
+    X = np.stack([rng.uniform(-3, 3, M), rng.uniform(-2, 2, M),
+                  rng.uniform(4, 9, M)], -1).astype(np.float32)
+    R = so3_exp(torch.tensor([0.02, -0.04, 0.03])).numpy()
+    t, s = np.array([0.3, -0.1, 0.4], np.float32), 1.08
+    Xd = (s * X @ R.T + t).astype(np.float32)
+
+    def project(P):
+        return np.stack([F * P[:, 0] / P[:, 2] + cx,
+                         F * P[:, 1] / P[:, 2] + cy], -1).astype(np.float32)
+
+    def inb(uv):
+        return ((uv[:, 0] > 25) & (uv[:, 0] < W - 25) & (uv[:, 1] > 25)
+                & (uv[:, 1] < H - 25))
+
+    keep = np.nonzero(inb(project(X)) & inb(project(Xd)))[0][:512]
+    X, Xd = X[keep], Xd[keep]
+    n = len(X)
+    desc = rng.integers(0, 2, (n, 256)).astype(np.uint8)
+    smap = SlamMap(max_kf=16, max_pt=4 * n, max_feat=512)
+
+    def feats(uv, d):
+        return {"uv": uv, "level": np.zeros(len(uv), np.int32),
+                "angle": np.zeros(len(uv), np.float32), "desc": d,
+                "valid": np.ones(len(uv), bool)}
+
+    def landmarks(kf, P):
+        ids = smap.alloc_points(n)
+        smap.pt_xyz[ids] = P
+        smap.pt_valid[ids] = True
+        smap.pt_desc[ids] = desc
+        smap.pt_ref_kf[ids] = kf
+        smap.bind(kf, np.arange(n), ids)
+
+    eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    cand = smap.add_keyframe(eye, zero, feats(project(X), desc))
+    landmarks(cand, X)
+    for j in range(1, 12):
+        smap.add_keyframe(eye, np.array([0.3 * j, 0, 0], np.float32), feats(
+            rng.uniform(10, [W - 10, H - 10], (512, 2)).astype(np.float32),
+            rng.integers(0, 2, (512, 256)).astype(np.uint8)))
+    kf = smap.add_keyframe(eye, zero, feats(project(Xd), desc))
+    landmarks(kf, Xd)
+    bow = BowIndex(vocab, max_kf=16, max_feat=512)
+    for k in range(smap.n_kf):
+        wid, b = bow.quantize(smap.kf_feat_desc[k], smap.kf_feat_valid[k])
+        bow.add_keyframe(k, b, feat_wid=wid)
+    return smap, bow, kf, cand, (R, t, s), n
+
+
+def check_loop_correction():
+    """compute_sim3 + correct on the loop scenario, on the card and on the
+    CPU: the drift recovered within the JAX test's bounds, the seam closed
+    (median reprojection of the current keyframe's points < 4 px) and the
+    duplicates fused; card and CPU fuse the same count and agree on the
+    keyframe poses within 1e-3."""
+    from ygz_tpu_torch.backend.bow import (default_vocabulary_path,
+                                           load_vocabulary)
+    from ygz_tpu_torch.backend.loopclosing import LoopCloser
+    from ygz_tpu_torch.eval.ate import rotation_angle_deg
+
+    vocab = load_vocabulary(default_vocabulary_path())
+    cam = euroc_camera()
+    res = []
+    for dev in ("cuda", "cpu"):
+        smap, bow, kf, cand, (R0, t0, s0), n = loop_scenario(vocab)
+        lc = LoopCloser(bow, cam, device=dev)
+        t_a = time.perf_counter()
+        out = lc.compute_sim3(smap, kf, cand)
+        t_b = time.perf_counter()
+        if out is None:
+            raise RuntimeError(f"compute_sim3 found no Sim3 on {dev}")
+        R, t, s, ni = out
+        errs = (abs(s - s0), rotation_angle_deg(R, R0),
+                float(np.abs(t - t0).max()))
+        n_before = int(smap.pt_valid[: smap.n_pt].sum())
+        lc.correct(smap, kf, cand, (R, t, s))
+        t_c = time.perf_counter()
+        fused = n_before - int(smap.pt_valid[: smap.n_pt].sum())
+        slots = np.nonzero(smap.kf_feat_pt[kf] >= 0)[0]
+        Xc = (smap.pt_xyz[smap.kf_feat_pt[kf, slots]] @ smap.kf_R[kf].T
+              + smap.kf_t[kf])
+        uv = np.stack([F * Xc[:, 0] / Xc[:, 2] + cam.cx,
+                       F * Xc[:, 1] / Xc[:, 2] + cam.cy], -1)
+        seam = float(np.median(np.linalg.norm(
+            uv - smap.kf_feat_uv[kf, slots], axis=1)))
+        res.append((smap, fused, 1e3 * (t_b - t_a), 1e3 * (t_c - t_b)))
+        print(f"loop correction on {dev}: Sim3 with {ni} inliers, |s - s0| "
+              f"{errs[0]:.2e}, rotation {errs[1]:.4f} deg, |t - t0| "
+              f"{errs[2]:.2e}; fused {fused} of {n} duplicates; seam "
+              f"{seam:.3f} px median; compute_sim3 {res[-1][2]:.2f} ms, "
+              f"correct {res[-1][3]:.2f} ms")
+        if errs[0] > 0.01 or errs[1] > 0.5 or errs[2] > 0.03:
+            raise RuntimeError(f"compute_sim3 on {dev} missed the drift")
+        if fused < 0.5 * n or seam > 4.0:
+            raise RuntimeError(f"correct on {dev}: fused {fused}, seam "
+                               f"{seam:.3f} px")
+    (a, fa, *_), (b, fb, *_) = res
+    K = a.n_kf
+    dR = float(np.abs(a.kf_R[:K] - b.kf_R[:K]).max())
+    dt = float(np.abs(a.kf_t[:K] - b.kf_t[:K]).max())
+    print(f"loop correction card vs CPU: fused {fa} vs {fb}; keyframe poses "
+          f"R {dR:.2e}, t {dt:.2e}")
+    if fa != fb or dR > 1e-3 or dt > 1e-3:
+        raise RuntimeError("loop correction on the card disagrees with the "
+                           "CPU")
+
+
 def main() -> int:
     import torch
 
@@ -255,8 +586,13 @@ def main() -> int:
         raise RuntimeError("the main path never launched the fast_score "
                            "kernel")
     print(system.tracker.timer.report())
-    check_result(system, states, ladder, poses[:N_FRAMES])
+    align, length = check_result(system, states, ladder, poses[:N_FRAMES])
     check_step_vs_cpu(system, frames[N_FRAMES:])
+    check_global_ba(system)
+    record["launches_relocalization"] = check_relocalization(
+        system, frames, poses, align, length)
+    check_ransac()
+    check_loop_correction()
 
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

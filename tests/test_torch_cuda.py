@@ -53,3 +53,78 @@ def test_fast_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         fast.fast_score_map(x.t(), 20.0)          # not contiguous
     with pytest.raises(TypeError):
         fast.fast_score_map(x.half(), 20.0)
+
+
+def _pnp_problem(rng, n=512, n_out=154):
+    """PnP with 30% outliers: world points, pixels, truth (R, t)."""
+    from ygz_tpu_torch.geometry.lie import so3_exp
+
+    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                  rng.uniform(4, 9, n)], 1).astype(np.float32)
+    R = so3_exp(torch.tensor([0.1, -0.15, 0.05])).numpy()
+    t = np.array([0.3, -0.2, 0.4], np.float32)
+    Xc = X @ R.T + t
+    uv = np.stack([458 * Xc[:, 0] / Xc[:, 2] + 376,
+                   458 * Xc[:, 1] / Xc[:, 2] + 240], 1).astype(np.float32)
+    uv += rng.normal(0, 0.5, uv.shape).astype(np.float32)
+    uv[:n_out] += rng.uniform(20, 80, (n_out, 2)).astype(np.float32)
+    return X, uv, R, t
+
+
+@pytest.mark.cuda
+def test_pnp_ransac_cuda_matches_cpu(cuda):
+    """The same injected hypotheses on the card and on the CPU: rotation
+    within 0.01 deg, translation within 1e-3, inlier masks >= 99% equal."""
+    from ygz_tpu_torch.backend.pnp import pnp_ransac
+    from ygz_tpu_torch.eval.ate import rotation_angle_deg
+    from ygz_tpu_torch.geometry.twoview import draw_samples
+
+    X, uv, R, t = _pnp_problem(np.random.default_rng(0))
+    valid = torch.ones(len(X), dtype=torch.bool)
+    g = torch.Generator()
+    g.manual_seed(0)
+    idx = draw_samples(valid, 300, 4, g)
+    intr = (458.0, 458.0, 376.0, 240.0)
+    out = []
+    for dev in ("cpu", cuda):
+        r = pnp_ransac(torch.as_tensor(X, device=dev),
+                       torch.as_tensor(uv, device=dev), valid.to(dev), intr,
+                       samples=idx.to(dev))
+        out.append([a.cpu().numpy() for a in r])
+    (ok_c, R_c, t_c, in_c, _), (ok_g, R_g, t_g, in_g, _) = out
+    assert ok_c and ok_g
+    assert rotation_angle_deg(R_g, R_c) < 0.01
+    assert np.abs(t_g - t_c).max() < 1e-3
+    assert (in_g == in_c).mean() >= 0.99
+    assert rotation_angle_deg(R_g, R) < 0.5 and not in_g[:154].any()
+
+
+@pytest.mark.cuda
+def test_sim3_ransac_cuda_matches_cpu(cuda):
+    from ygz_tpu_torch.eval.ate import rotation_angle_deg
+    from ygz_tpu_torch.geometry.lie import so3_exp
+    from ygz_tpu_torch.geometry.sim3 import sim3_ransac
+    from ygz_tpu_torch.geometry.twoview import draw_samples
+
+    rng = np.random.default_rng(1)
+    n, n_out = 200, 60
+    R = so3_exp(torch.tensor([0.2, -0.1, 0.3])).numpy()
+    t, s = np.array([0.5, -0.2, 0.1], np.float32), 1.1
+    X = rng.normal(size=(n, 3)).astype(np.float32) * 2
+    Y = (s * X @ R.T + t).astype(np.float32)
+    Y[:n_out] += rng.uniform(0.5, 2, (n_out, 3)).astype(np.float32)
+    mask = torch.ones(n, dtype=torch.bool)
+    g = torch.Generator()
+    g.manual_seed(1)
+    idx = draw_samples(mask, 300, 3, g)
+    out = []
+    for dev in ("cpu", cuda):
+        r = sim3_ransac(torch.as_tensor(X, device=dev),
+                        torch.as_tensor(Y, device=dev), mask.to(dev),
+                        th_b=0.05, samples=idx.to(dev))
+        out.append([a.cpu().numpy() for a in r])
+    (R_c, t_c, s_c, in_c, _), (R_g, t_g, s_g, in_g, _) = out
+    assert rotation_angle_deg(R_g, R_c) < 0.01
+    assert np.abs(t_g - t_c).max() < 1e-3 and abs(s_g - s_c) < 1e-3
+    assert (in_g == in_c).mean() >= 0.99
+    assert abs(s_g - s) < 1e-3 and not in_g[:n_out].any()

@@ -1,6 +1,7 @@
 """The port's lost-frame paths and its keyframe-tail map edits.
 
-One 30-frame run of the port's System.track_monocular on the CPU over the
+One 30-frame run of the port's System.track_monocular (default
+configuration: BoW, relocalization and loop closing on) on the CPU over the
 JAX package's synthetic VO sequence (tests/test_vo_e2e.py, SmoothScene seed
 11), with one frame at 0.4x exposure: direct tracking (photometric) loses
 it, so the feature fallback ladder (motion model -> reference keyframe ->
@@ -19,7 +20,6 @@ from ygz_tpu.backend.mapping import LocalMapper as JaxMapper
 from ygz_tpu.geometry.camera import Camera as JaxCamera
 from ygz_tpu_torch.backend.mapping import LocalMapper
 from ygz_tpu_torch.eval.ate import ate_rmse
-from ygz_tpu_torch.frontend.tracker import TrackerConfig
 from ygz_tpu_torch.geometry.camera import Camera
 from ygz_tpu_torch.system import Sensor, System
 from ygz_tpu_torch.utils.synthetic import SmoothScene
@@ -34,9 +34,7 @@ DARK_GAIN = 0.4
 
 def _system(scene):
     cam = Camera.make(scene.f, scene.f, scene.cx, scene.cy, scene.w, scene.h)
-    return System(cam, Sensor.MONOCULAR, config=TrackerConfig(
-        enable_loop_closing=False, enable_relocalization=False,
-        async_mapping=False), device="cpu")
+    return System(cam, Sensor.MONOCULAR, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +89,9 @@ def test_blank_frame_goes_lost_cleanly():
     """A blank frame right after initialization (at frame 5): nothing to
     extract, every rung fails, the tracker goes LOST, and a map of <= 5
     keyframes is reset (reference reset-on-early-loss), after which
-    tracking bootstraps again (in 6 frames, as it first did)."""
+    tracking bootstraps again (in 6 frames, as it first did). The reset
+    comes before relocalization could run: a reset tracker is
+    NOT_INITIALIZED, not LOST."""
     scene = SmoothScene(seed=11)
     poses = make_trajectory(16)
     system = _system(scene)

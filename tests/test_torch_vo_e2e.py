@@ -1,4 +1,5 @@
 """End-to-end monocular VO of the torch port on the CPU: System.track_monocular
+with the default configuration (BoW, relocalization and loop closing on)
 over the first 30 frames of the JAX package's synthetic VO sequence
 (tests/test_vo_e2e.py, SmoothScene seed 11), held to that test's ATE bound."""
 import numpy as np
@@ -18,9 +19,7 @@ def test_port_mono_vo_30_frames(tmp_path):
     scene = SmoothScene(seed=11)
     cam = Camera.make(scene.f, scene.f, scene.cx, scene.cy, scene.w, scene.h)
     poses = make_trajectory(30)
-    system = System(cam, Sensor.MONOCULAR, config=TrackerConfig(
-        enable_loop_closing=False, enable_relocalization=False,
-        async_mapping=False), device="cpu")
+    system = System(cam, Sensor.MONOCULAR, device="cpu")
     states = [system.track_monocular(scene.render(R, t), i * 0.05)[0]
               for i, (R, t) in enumerate(poses)]
     assert "OK" in states, states
@@ -59,9 +58,13 @@ def test_port_rejects_unported_settings():
     cam = Camera.make(scene.f, scene.f, scene.cx, scene.cy, scene.w, scene.h)
     for cfg in (TrackerConfig(keypoint_mode="octree"),
                 TrackerConfig(mesh_devices=2),
-                TrackerConfig(enable_loop_closing=True),
                 TrackerConfig(async_mapping=True)):
         with pytest.raises(NotImplementedError):
             System(cam, Sensor.MONOCULAR, config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        System(cam, Sensor.STEREO, device="cpu")
+    for sensor in (Sensor.STEREO, Sensor.RGBD, Sensor.MONO_VI):
+        with pytest.raises(NotImplementedError):
+            System(cam, sensor, device="cpu")
+    # the JAX package's default configuration is ported
+    cfg = System(cam, Sensor.MONOCULAR, device="cpu").tracker.cfg
+    assert cfg.enable_loop_closing and cfg.enable_relocalization
+    assert cfg.vocab_path == "auto"

@@ -5,9 +5,11 @@ twin's path, fixed capacities, packed layouts and validity masks so the two
 can be compared entry for entry. This package imports ``torch`` and never
 ``jax`` (nor ``ygz_tpu``, whose ``__init__`` imports jax).
 
-The monocular VO main path is ported: ``System.track_monocular`` ->
-``MonoTracker.track`` -> the fused frame step, ORB extraction, two-view
-init and the keyframe mapping tail. Its one hand-written kernel is the
+The JAX package's default monocular configuration is ported:
+``System.track_monocular`` -> ``MonoTracker.track`` -> the fused frame
+step, ORB extraction, two-view init, the keyframe mapping tail, BoW place
+recognition, relocalization (EPnP RANSAC) and loop closing (Sim3, essential
+graph, global BA). Its one hand-written kernel is the
 FAST-10 score map (``ops/fast.py`` + ``csrc/fast_score.cu``), launched for
 CUDA tensors; CPU tensors take the plain PyTorch version.
 """

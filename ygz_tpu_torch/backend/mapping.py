@@ -1,7 +1,8 @@
 """Local mapping: triangulation of new points, fusion, local BA, culling.
 
 Port of ``ygz_tpu/backend/mapping.py::LocalMapper`` for the monocular
-keyframe tail (global BA and its distributed form are not ported yet).
+keyframe tail and the global BA after a loop closure (the distributed
+global BA, ``_global_ba_dist``, is not ported yet).
 The map stays host-resident numpy (``backend/mapstate.py``); each step
 moves the rows it needs to ``self.device``, runs batched tensor numerics,
 and writes the results back.
@@ -21,6 +22,14 @@ from ..ops import matching
 BA_P = 8       # local BA pose capacity
 BA_L = 2048    # landmark capacity
 BA_O = 4096    # observation capacity
+
+
+def _bucket(n, opts):
+    """The smallest capacity in opts that holds n (the largest if none)."""
+    for o in opts:
+        if n <= o:
+            return o
+    return opts[-1]
 
 
 def _retriangulate(PA, PB, uvA, uvB, RA, tA, RB, tB, K, med_depth, vmask):
@@ -150,7 +159,8 @@ class LocalMapper:
         # capacity-drop accounting: landmarks/observations shed by a
         # fixed-capacity BA or descriptor-update problem
         self.dropped = {"local_ba_points": 0, "local_ba_obs": 0,
-                        "desc_update_points": 0}
+                        "desc_update_points": 0, "global_ba_points": 0,
+                        "global_ba_obs": 0}
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -402,6 +412,71 @@ class LocalMapper:
             if len(slots):
                 smap.kf_feat_pt[k, slots] = -1
                 smap.pt_obs[pid] -= len(slots)
+
+    # -------------------------------------------------------------- global BA
+    def global_ba(self, smap: SlamMap, phases=(10, 10), max_poses: int = 64):
+        """Full-map bundle adjustment (reference GlobalBundleAdjustemnt, run
+        after a loop closure) through local_bundle_adjustment. Capacities are
+        bucketed; maps larger than the biggest bucket optimize the newest
+        `max_poses` keyframes against the rest held fixed."""
+        kfs = [k for k in range(smap.n_kf) if smap.kf_valid[k]]
+        if len(kfs) < 2:
+            return
+        free = kfs[-max_poses:] if len(kfs) > max_poses else kfs
+        P = _bucket(len(kfs), [8, 16, 32, 64, 128])
+        pt_ids = smap.points_in_kfs(kfs)
+        L = _bucket(len(pt_ids), [2048, 4096, 8192, 16384])
+        if len(pt_ids) > L:
+            self.dropped["global_ba_points"] += len(pt_ids) - L
+            pt_ids = pt_ids[np.argsort(-smap.pt_obs[pt_ids])[:L]]
+        o_kf, o_pt, o_uv, o_lvl, o_ur = smap.observations(kfs[:P], pt_ids)
+        O = _bucket(len(o_kf), [8192, 16384, 32768])
+        if len(o_kf) > O:
+            self.dropped["global_ba_obs"] += len(o_kf) - O
+            order = np.argsort(-smap.pt_obs[pt_ids[o_pt]],
+                               kind="stable")[:O]
+            o_kf, o_pt, o_uv, o_lvl, o_ur = (o_kf[order], o_pt[order],
+                                             o_uv[order], o_lvl[order],
+                                             o_ur[order])
+        kfR = np.tile(np.eye(3, dtype=np.float32), (P, 1, 1))
+        kft = np.zeros((P, 3), np.float32)
+        fixed = np.ones(P, bool)
+        for i, k in enumerate(kfs[:P]):
+            kfR[i] = smap.kf_R[k]
+            kft[i] = smap.kf_t[k]
+            fixed[i] = k not in free
+        fixed[0] = True  # gauge anchor (reference fixes KF0)
+
+        pts = np.zeros((L, 3), np.float32)
+        ptv = np.zeros(L, bool)
+        pts[: len(pt_ids)] = smap.pt_xyz[pt_ids]
+        ptv[: len(pt_ids)] = True
+        obs_p = np.zeros(O, np.int64)
+        obs_l = np.zeros(O, np.int64)
+        obs_uv = np.zeros((O, 2), np.float32)
+        obs_ur = np.full(O, -1.0, np.float32)
+        obs_is2 = np.ones(O, np.float32)
+        obs_valid = np.zeros(O, bool)
+        n_o = len(o_kf)
+        obs_p[:n_o] = o_kf
+        obs_l[:n_o] = o_pt
+        obs_uv[:n_o] = o_uv
+        obs_ur[:n_o] = o_ur
+        obs_is2[:n_o] = 0.25 ** o_lvl
+        obs_valid[:n_o] = True
+
+        t = self._t
+        res = local_bundle_adjustment(
+            t(kfR), t(kft), t(fixed), t(pts), t(ptv), t(obs_p), t(obs_l),
+            t(obs_uv), t(obs_is2), t(obs_valid), self.intr, n_poses=P,
+            n_points=L, phases=tuple(phases), obs_ur=t(obs_ur), bf=self.bf)
+        newR = res.kf_R.cpu().numpy()
+        newt = res.kf_t.cpu().numpy()
+        for i, k in enumerate(kfs[:P]):
+            if not fixed[i]:
+                smap.set_pose(k, newR[i], newt[i])
+        smap.pt_xyz[pt_ids] = res.points.cpu().numpy()[: len(pt_ids)]
+        smap.sync_ref_poses()
 
     # ------------------------------------------------------------------ fuse
     def search_in_neighbors(self, smap: SlamMap, kf: int,

@@ -6,23 +6,32 @@ main path: initialize (ORB + two-view) -> per frame the fused step
 point cache, pose GN) -> keyframe decision -> synchronous mapping tail
 (triangulation, fusion, local BA, culling, patch refresh). When direct
 tracking fails, the feature fallback ladder (motion model -> reference KF
--> feature local map) runs before the tracker declares itself LOST.
+-> feature local map) runs before the tracker declares itself LOST; a LOST
+tracker relocalizes through BoW candidates and EPnP RANSAC. Each keyframe
+is indexed for place recognition and tested for a loop; an accepted loop is
+corrected through the Sim3 essential graph, then a global BA.
 
-Not ported yet (ROADMAP queue A): relocalization and BoW, loop closing,
-the async mapping worker, ``track_batch``, the octree keypoint mode,
-multi-device BA, and the stereo/RGB-D/VI subclasses.
+Not ported yet (ROADMAP queue A): the async mapping worker,
+``track_batch``, the octree keypoint mode, multi-device BA, and the
+stereo/RGB-D/VI subclasses.
 """
 from __future__ import annotations
 
 import enum
+import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..backend.bow import (BowIndex, default_vocabulary_path,
+                           load_vocabulary, train_vocabulary)
+from ..backend.loopclosing import LoopCloser
 from ..backend.mapping import LocalMapper
 from ..backend.mapstate import SlamMap
 from ..backend.optim import pose_optimization
+from ..backend.pnp import pnp_ransac
 from ..geometry import camera as cam_mod
 from ..geometry.twoview import two_view_reconstruct
 from ..ops import matching
@@ -40,10 +49,9 @@ class State(enum.Enum):
 
 @dataclass
 class TrackerConfig:
-    """The JAX package's tracker settings. The port accepts the monocular
-    VO subset: keypoint_mode 'grid', mesh_devices <= 1, loop closing,
-    relocalization and async mapping off (their defaults here); anything
-    else raises NotImplementedError. track_batch is accepted and unused."""
+    """The JAX package's tracker settings, with its defaults. The port
+    rejects (NotImplementedError) keypoint_mode 'octree', mesh_devices > 1
+    and async_mapping; track_batch is accepted and unused."""
     n_features: int = 512
     keypoint_mode: str = "grid"
     n_levels: int = 4
@@ -59,8 +67,14 @@ class TrackerConfig:
     kf_min_gap: int = 3
     kf_max_gap: int = 30
     ba_window: int = 6
-    enable_loop_closing: bool = False
-    enable_relocalization: bool = False
+    enable_loop_closing: bool = True
+    enable_relocalization: bool = True
+    vocab_branching: int = 8
+    vocab_depth: int = 3
+    # "auto": the shipped offline vocabulary (ygz_tpu/data/orb_vocab.npz,
+    # k=10 L=5, 99,478 words) when present, else trained in-system on the
+    # init descriptors; a path loads that file; None forces training
+    vocab_path: Optional[str] = "auto"
     async_mapping: bool = False
     track_batch: int = 8
     mesh_devices: int = 0
@@ -70,10 +84,6 @@ class TrackerConfig:
             "keypoint_mode": (self.keypoint_mode != "grid",
                               "19 (periphery: select_octree)"),
             "mesh_devices": (self.mesh_devices > 1, "20 (distributed BA)"),
-            "enable_loop_closing": (self.enable_loop_closing,
-                                    "16 (loop closing)"),
-            "enable_relocalization": (self.enable_relocalization,
-                                      "15 (relocalization)"),
             "async_mapping": (self.async_mapping,
                               "19 (periphery: the async mapping worker)"),
         }
@@ -137,6 +147,17 @@ class MonoTracker:
         self._kf_ref_tracked = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+        # place recognition: vocabulary loaded (or trained) at map init
+        self.bow_index: BowIndex = None
+        self.loop_closer: LoopCloser = None
+        self.n_loops_closed = 0
+        # relocalization's PnP RANSAC draws on the CPU, so a CUDA run draws
+        # the same hypotheses as a CPU one
+        self._reloc_gen = torch.Generator()
+        self._reloc_gen.manual_seed(0)
+        # localization-only: track against the frozen map, no KFs/mapping
+        # (reference ActivateLocalizationMode)
+        self.localization_only = False
 
     def reset(self, keep_trajectory: bool = True):
         """Clear map and tracking state (reference Tracking::Reset)."""
@@ -184,9 +205,16 @@ class MonoTracker:
             self._log(ts, R, t)
             return self.state, R, t
         if self.state == State.LOST:
-            # relocalization is not ported: a LOST tracker stays LOST
-            self._log(ts, self._last_R, self._last_t)
-            return self.state, self._last_R, self._last_t
+            with self.timer.stage("pyramid"):
+                pyr = self._build_pyramid(img)
+            relocalized = False
+            if self.cfg.enable_relocalization:
+                with self.timer.stage("relocalize"):
+                    relocalized = self._relocalize(pyr)
+            if not relocalized:
+                self._log(ts, self._last_R, self._last_t)
+                return self.state, self._last_R, self._last_t
+            self.state = State.OK
         ok, R, t = self._track_frame(img, ts)
         self._log(ts, R, t)
         return self.state, R, t
@@ -213,6 +241,19 @@ class MonoTracker:
             return rec.R, rec.t
         Rk, tk = self.map.resolve_pose(rec.ref_kf)
         return rec.R_r @ Rk, rec.R_r @ tk + rec.t_r
+
+    def _build_vocabulary(self, desc, doc_ids=None):
+        """Vocabulary source (TrackerConfig.vocab_path): the shipped offline
+        vocabulary, a given file, or in-system training on `desc`."""
+        path = self.cfg.vocab_path
+        if path == "auto":
+            p = default_vocabulary_path()
+            if os.path.exists(p):
+                return load_vocabulary(p)
+        elif path:
+            return load_vocabulary(path)
+        return train_vocabulary(desc, branching=self.cfg.vocab_branching,
+                                depth=self.cfg.vocab_depth, doc_ids=doc_ids)
 
     # ----------------------------------------------------------------- init
     def _try_initialize(self, pyr, ts) -> bool:
@@ -282,6 +323,17 @@ class MonoTracker:
         smap.pt_xyz[: smap.n_pt] /= med2
         smap.kf_t[:2] /= med2
         self.mapper.refresh_patches(smap, kf1, pyr1, ids, slots1)
+        if self.cfg.enable_loop_closing or self.cfg.enable_relocalization:
+            desc = np.concatenate([f0["desc"][f0["valid"]],
+                                   f1["desc"][f1["valid"]]])
+            doc = np.concatenate([np.zeros(int(f0["valid"].sum()), np.int64),
+                                  np.ones(int(f1["valid"].sum()), np.int64)])
+            self.bow_index = BowIndex(self._build_vocabulary(desc, doc),
+                                      max_kf=smap.max_kf, device=self.device)
+            self.loop_closer = LoopCloser(self.bow_index, self.cam,
+                                          device=self.device)
+            for k in (kf0, kf1):
+                self._index_keyframe(k)
         smap.kf_parent[kf1] = kf0
         self.state = State.OK
         self._last_kf = kf1
@@ -337,8 +389,9 @@ class MonoTracker:
             if fb is None:
                 last_R, last_t = self._last_R, self._last_t
                 self.state = State.LOST
-                # reset-on-early-loss: a map of <= 5 KFs is not worth keeping
-                if smap.n_kf <= 5:
+                # reset-on-early-loss: a map of <= 5 KFs is not worth
+                # relocalizing against
+                if smap.n_kf <= 5 and not self.localization_only:
                     self.reset()
                     self.state = State.NOT_INITIALIZED
                 return False, last_R, last_t
@@ -371,6 +424,8 @@ class MonoTracker:
         monocular tracker: the mapper is always idle, so after the minimum
         gap a KF is due at the hard cap or when tracking weakens (c2)."""
         cfg = self.cfg
+        if self.localization_only:
+            return False
         gap = self.frame_id - self._last_kf_frame
         if gap < cfg.kf_min_gap:
             return False
@@ -549,17 +604,38 @@ class MonoTracker:
             return None
         return self._pose_np(best_res.R, best_res.t)
 
+    def _frame_groups(self, f):
+        """Quantize a frame's descriptors and return their FeatureVector
+        group ids (cached in f["groups"]): the frame side of node-gated
+        SearchByBoW."""
+        if self.bow_index is None:
+            return None
+        if "groups" not in f:
+            wid, _ = self.bow_index.quantize(f["desc"], f["valid"])
+            f["groups"] = self.bow_index.groups_of(wid)
+        return f["groups"]
+
+    def _kf_groups(self, kf):
+        """Device group ids of keyframe kf's feature slots, or None when
+        the BoW index does not hold it."""
+        bow = self.bow_index
+        if bow is None or kf >= len(bow.kf_valid) or not bow.kf_valid[kf]:
+            return None
+        return self._t(bow.feat_groups(kf))
+
     def _track_reference_keyframe(self, f, min_matches: int = 15,
                                   min_inliers: int = 10):
-        """Mutual descriptor match against the reference KF's bound
-        features (no BoW node gate: the vocabulary is not ported) + pose
-        opt from the last pose."""
+        """Node-gated BoW match against the reference KF's bound features
+        (ORBmatcher::SearchByBoW: a group-gated mutual NN with the 0.7
+        ratio) + pose opt from the last pose."""
         kf = self._last_kf
         smap = self.map
         while kf >= 0 and not smap.kf_valid[kf]:
             kf -= 1
         if kf < 0:
             return None
+        g1 = self._kf_groups(kf)
+        g2 = None if g1 is None else self._t(self._frame_groups(f))
         bound = smap.kf_feat_pt[kf] >= 0
         if int(bound.sum()) < min_matches:
             return None
@@ -567,7 +643,8 @@ class MonoTracker:
         idx, ok = matching.match_with_windows(
             fK["desc"], self._t(bound), self._t(f["desc"]),
             self._t(f["valid"]), max_dist=matching.TH_LOW, ratio=0.7,
-            ang1=fK["angle"], ang2=self._t(f["angle"]), mutual=True)
+            ang1=fK["angle"], ang2=self._t(f["angle"]), mutual=True,
+            groups1=g1, groups2=g2)
         idx = idx.cpu().numpy()
         rows = np.nonzero(ok.cpu().numpy())[0]
         if len(rows) < min_matches:
@@ -602,6 +679,78 @@ class MonoTracker:
         return (R_cur, t_cur, pt_ids[:n][rows],
                 f["uv"][slots[:n][rows]].astype(np.float32),
                 f["level"][slots[:n][rows]].astype(np.int32))
+
+    # ---------------------------------------------------------- relocalization
+    def _relocalize(self, pyr) -> bool:
+        """BoW candidates + EPnP RANSAC (reference Tracking::Relocalization):
+        per candidate keyframe, node-gated matches -> PnP -> pose GN on the
+        matches -> projection search over the candidate's local map until
+        >= 50 inliers."""
+        if self.bow_index is None:
+            return False
+        smap = self.map
+        f = self._feats_to_dict(self.extractor(pyr))
+        wid, bow = self.bow_index.quantize(f["desc"], f["valid"])
+        f["groups"] = self.bow_index.groups_of(wid)
+        for kf in self.bow_index.reloc_candidates(bow, max_candidates=5):
+            bound = smap.kf_feat_pt[kf] >= 0
+            if bound.sum() < 15:
+                continue
+            fK = self.mapper.kf_dev_feats(smap, kf)
+            idx, ok = matching.match_with_windows(
+                self._t(f["desc"]), self._t(f["valid"]), fK["desc"],
+                self._t(bound), max_dist=matching.TH_LOW, ratio=0.75,
+                mutual=True, ang1=self._t(f["angle"]), ang2=fK["angle"],
+                groups1=self._t(f["groups"]), groups2=self._kf_groups(kf))
+            idx = idx.cpu().numpy()
+            rows = np.nonzero(ok.cpu().numpy())[0]
+            if len(rows) < 10:
+                continue
+            pt_ids = smap.kf_feat_pt[kf, idx[rows]]
+            good = smap.pt_valid[pt_ids]
+            rows, pt_ids = rows[good], pt_ids[good]
+            if len(rows) < 10:
+                continue
+            cap = 512
+            n = min(len(rows), cap)
+            X = np.zeros((cap, 3), np.float32)
+            uv = np.zeros((cap, 2), np.float32)
+            valid = np.zeros(cap, bool)
+            X[:n] = smap.pt_xyz[pt_ids[:n]]
+            uv[:n] = f["uv"][rows[:n]]
+            valid[:n] = True
+            res = pnp_ransac(self._t(X), self._t(uv), self._t(valid),
+                             self.intr, self._reloc_gen, min_inliers=15)
+            if not bool(res.ok):
+                continue
+            R, t = self._pose_np(res.R, res.t)
+            # verify with a pose GN on the BoW matches, then widen by
+            # projection search until >= 50 inliers
+            opt, _, _ = self._pose_opt_matches(pt_ids[:n], rows[:n], f, R, t)
+            n_inl = int(opt.n_inliers)
+            if n_inl < 10:
+                continue
+            R, t = self._pose_np(opt.R, opt.t)
+            for radius in (10.0, 20.0):
+                if n_inl >= 50:
+                    break
+                local_pts = smap.points_in_kfs(smap.local_window(kf, 10))
+                m_ids, m_slots = self._match_points_to_feats(
+                    local_pts, R, t, f, radius=radius, ratio=0.85)
+                if len(m_ids) < 20:
+                    continue
+                opt, _, _ = self._pose_opt_matches(m_ids, m_slots, f, R, t)
+                n_inl = int(opt.n_inliers)
+                R, t = self._pose_np(opt.R, opt.t)
+            if n_inl < 50:
+                continue
+            self._vel = (np.eye(3, dtype=np.float32),
+                         np.zeros(3, np.float32))
+            self._last_kf = kf
+            self._rebuild_cache()
+            self._set_last_frame(pyr, R, t, cache_uv=None)
+            return True
+        return False
 
     # -------------------------------------------------------------- keyframes
     def _extract_kf_features(self, pyr, uv_pad, lvl_pad, val_pad):
@@ -644,9 +793,34 @@ class MonoTracker:
         self._mapping_tail(kf, pyr)
         return smap.kf_R[kf].copy(), smap.kf_t[kf].copy()
 
+    def stats(self) -> dict:
+        """Structured counters: state, map size, loops closed, per-stage
+        mean ms and the BA capacity drops."""
+        smap = self.map
+        return {
+            "state": self.state.name,
+            "frame_id": self.frame_id,
+            "n_kf": int(smap.kf_valid[: smap.n_kf].sum()),
+            "n_pt": int(smap.pt_valid[: smap.n_pt].sum()),
+            "n_loops_closed": self.n_loops_closed,
+            "cache_size": len(self._cache),
+            "stage_ms": self.timer.mean_ms(),
+            "ba_dropped": dict(self.mapper.dropped),
+        }
+
+    def _index_keyframe(self, kf):
+        """Quantize keyframe kf and add it to the BoW index; returns its
+        bow vector."""
+        smap = self.map
+        wid, bow = self.bow_index.quantize(smap.kf_feat_desc[kf],
+                                           smap.kf_feat_valid[kf])
+        self.bow_index.add_keyframe(kf, bow, feat_wid=wid)
+        return bow
+
     def _mapping_tail(self, kf, pyr):
         """LocalMapping duties for one keyframe: triangulate, fuse, local
-        BA, cull, refresh the direct patches, rebuild the cache."""
+        BA, cull, refresh the direct patches, place recognition and loop
+        closing, rebuild the cache."""
         smap = self.map
         with self.timer.stage("mapping_tail"):
             with self.timer.stage("mt_triangulate"):
@@ -663,11 +837,37 @@ class MonoTracker:
                 self.mapper.local_ba(smap, kf)
             with self.timer.stage("mt_cull"):
                 self.mapper.cull_points(smap)
-                self.mapper.cull_keyframes(smap, kf)
+                n_culled = self.mapper.cull_keyframes(smap, kf)
+            if n_culled and self.bow_index is not None:
+                # a culled keyframe must leave the BoW index too
+                m = min(len(self.bow_index.kf_valid), smap.n_kf)
+                self.bow_index.kf_valid[:m] &= smap.kf_valid[:m]
             # refresh direct patches of ALL points bound to this KF with the
             # POST-BA geometry
             with self.timer.stage("mt_patches"):
                 slots = np.nonzero(smap.kf_feat_pt[kf] >= 0)[0]
                 self.mapper.refresh_patches(smap, kf, pyr,
                                             smap.kf_feat_pt[kf, slots], slots)
+            if self.bow_index is not None:
+                self._place_recognition(kf, pyr)
             self._rebuild_cache()
+
+    def _place_recognition(self, kf, pyr):
+        """Index the keyframe; with loop closing on, test it for a loop and,
+        on an accepted one, correct it, then run a global BA (the
+        reference's RunGlobalBundleAdjustment) and refresh the keyframe's
+        patches against the corrected map."""
+        smap = self.map
+        with self.timer.stage("mt_loop"):
+            bow = self._index_keyframe(kf)
+            closed = (self.cfg.enable_loop_closing
+                      and self.loop_closer.process_keyframe(smap, kf, bow))
+        if not closed:
+            return
+        self.n_loops_closed += 1
+        with self.timer.stage("global_ba"):
+            self.mapper.global_ba(smap)
+        slots = np.nonzero(smap.kf_feat_pt[kf] >= 0)[0]
+        self.mapper.refresh_patches(smap, kf, pyr, smap.kf_feat_pt[kf, slots],
+                                    slots)
+        self._vel = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))

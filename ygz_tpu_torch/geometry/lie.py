@@ -28,25 +28,29 @@ def hat(w):
     ], -2)
 
 
+def _sqrt_big(x2, small):
+    # sqrt where the Taylor branch is not taken; 1 under it, so that
+    # reverse-mode gradients through the unused branch stay finite
+    return torch.sqrt(torch.where(small, torch.ones_like(x2), x2))
+
+
 def _sin_over_x(x2):
-    x = torch.sqrt(torch.clamp(x2, min=0.0))
     small = x2 < _EPS
-    return torch.where(small, 1.0 - x2 / 6.0,
-                       torch.sin(x) / torch.where(small, torch.ones_like(x),
-                                                  x))
+    x = _sqrt_big(x2, small)
+    return torch.where(small, 1.0 - x2 / 6.0, torch.sin(x) / x)
 
 
 def _one_minus_cos_over_x2(x2):
-    x = torch.sqrt(torch.clamp(x2, min=0.0))
     small = x2 < _EPS
+    x = _sqrt_big(x2, small)
     return torch.where(small, 0.5 - x2 / 24.0,
                        (1.0 - torch.cos(x))
                        / torch.where(small, torch.ones_like(x2), x2))
 
 
 def _x_minus_sin_over_x3(x2):
-    x = torch.sqrt(torch.clamp(x2, min=0.0))
     small = x2 < _EPS
+    x = _sqrt_big(x2, small)
     return torch.where(small, 1.0 / 6.0 - x2 / 120.0,
                        (x - torch.sin(x))
                        / torch.where(small, torch.ones_like(x2), x2 * x))
@@ -92,14 +96,26 @@ def so3_log(R):
     return torch.where(near_pi, w_pi, w_generic)
 
 
+def so3_log_safe(R, tiny=1e-12):
+    """SO(3) log through theta = atan2(|vee|, (tr - 1) / 2) with a smoothed
+    norm: exact away from 0 and pi, and differentiable at the identity,
+    where the arccos form of so3_log has an infinite derivative (pose-graph
+    residuals vanish there)."""
+    v = 0.5 * torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                           R[..., 0, 2] - R[..., 2, 0],
+                           R[..., 1, 0] - R[..., 0, 1]], -1)
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    c = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    s = torch.sqrt((v * v).sum(-1) + tiny)
+    return v * (torch.atan2(s, c) / s)[..., None]
+
+
 def _left_jacobian_inv(w):
     theta2 = (w * w).sum(-1)[..., None, None]
     W = hat(w)
-    x = torch.sqrt(torch.clamp(theta2, min=0.0))
     small = theta2 < _EPS
-    half = 0.5 * x
-    cot_term = half * torch.cos(half) / torch.where(
-        small, torch.ones_like(half), torch.sin(half))
+    half = 0.5 * _sqrt_big(theta2, small)
+    cot_term = half * torch.cos(half) / torch.sin(half)
     coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
                        (1.0 - cot_term)
                        / torch.where(small, torch.ones_like(theta2), theta2))

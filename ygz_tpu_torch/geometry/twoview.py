@@ -118,11 +118,16 @@ def score_fundamental(F, p1, p2, mask, sigma2=1.0):
 def draw_samples(mask, num_iters: int, sample_size: int,
                  generator: torch.Generator):
     """[num_iters, sample_size] indices drawn without replacement among the
-    masked matches (uniform over them)."""
-    probs = mask.to(torch.float32)
+    masked entries (uniform over them; over all entries when fewer than
+    sample_size are masked), on the generator's device and returned on the
+    mask's: a CPU generator gives a CUDA caller the same sets."""
+    probs = mask.to(device=generator.device, dtype=torch.float32)
+    if int(probs.sum()) < sample_size:
+        probs = torch.ones_like(probs)
     probs = probs / torch.clamp(probs.sum(), min=1.0)
     return torch.multinomial(probs[None].expand(num_iters, -1), sample_size,
-                             replacement=False, generator=generator)
+                             replacement=False,
+                             generator=generator).to(mask.device)
 
 
 def _ransac(fit_fn, score_fn, denorm, p1, p2, mask, idx):

@@ -87,13 +87,23 @@ def rotation_consistency(ang1, ang2, idx, ok):
 
 def match_with_windows(bits1, valid1, bits2, valid2, uv_pred1=None, uv2=None,
                        radius=None, max_dist=TH_LOW, ratio=0.9,
-                       ang1=None, ang2=None, mutual=False):
+                       ang1=None, ang2=None, mutual=False,
+                       groups1=None, groups2=None):
     """Window-gated Hamming NN + ratio, optional rotation histogram and
     mutual check (ORBmatcher::SearchByProjection semantics). Leading batch
-    dims are allowed when no angles are given."""
+    dims are allowed when no angles are given.
+
+    groups1/groups2: optional per-feature FeatureVector node ids; a pair is
+    a candidate only if both share a group or either group is -1 (the
+    node-gated SearchByBoW, as a BIG penalty)."""
     d = hamming_matrix(bits1, bits2, valid1, valid2)
     if radius is not None:
         d = d + window_gate(uv_pred1, uv2, radius)
+    if groups1 is not None and groups2 is not None:
+        g1 = groups1[..., :, None]
+        g2 = groups2[..., None, :]
+        same = (g1 == g2) | (g1 < 0) | (g2 < 0)
+        d = d + torch.where(same, 0.0, BIG)
     idx, ok = nn_match(d, max_dist=max_dist, ratio=ratio)
     if ang1 is not None and ang2 is not None:
         ok = rotation_consistency(ang1, ang2, idx, ok)

@@ -1,9 +1,10 @@
 """System facade: the public entry point of the PyTorch port.
 
 Port of ``ygz_tpu/system.py`` for ``Sensor.MONOCULAR``: construction,
-``track_monocular``, the TUM trajectory savers, ``trajectory``, ``map`` and
-``reset``. The other sensors, batched tracking and map persistence are not
-ported yet (ROADMAP queue A).
+``track_monocular``, the TUM and KITTI trajectory savers, ``trajectory``,
+``map``, ``reset``, map save/load (a loaded map is entered through
+relocalization) and the localization-only mode. The other sensors and
+batched tracking are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -12,8 +13,11 @@ from typing import Optional
 
 import numpy as np
 
+from .backend.bow import BowIndex, Vocabulary
+from .backend.loopclosing import LoopCloser
+from .backend.mapstate import SlamMap
 from .geometry import camera as cam_mod
-from .frontend.tracker import MonoTracker, TrackerConfig
+from .frontend.tracker import MonoTracker, State, TrackerConfig
 
 
 class Sensor(enum.Enum):
@@ -96,6 +100,16 @@ class System:
                     f.write(_tum_line(rec.ts,
                                       *self.tracker.recovered_pose(rec)))
 
+    def save_trajectory_kitti(self, path: str):
+        """KITTI format: one row-major 3x4 [R|t] of T_wc per frame."""
+        with open(path, "w") as f:
+            for rec in self.tracker.trajectory:
+                R, t = self.tracker.recovered_pose(rec)
+                Rwc = np.asarray(R).T
+                twc = -Rwc @ np.asarray(t)
+                vals = np.concatenate([Rwc, twc[:, None]], 1).reshape(-1)
+                f.write(" ".join(f"{v:.9e}" for v in vals) + "\n")
+
     def save_keyframe_trajectory_tum(self, path: str):
         smap = self.tracker.map
         with open(path, "w") as f:
@@ -115,3 +129,76 @@ class System:
     def reset(self):
         """Clear map and tracking state (reference System::Reset)."""
         self.tracker.reset(keep_trajectory=False)
+
+    # ------------------------------------------------------------ persistence
+    def save_map(self, path: str):
+        """Serialize the map + place-recognition state to one .npz, in the
+        JAX package's layout (the reference never implemented SaveMap)."""
+        tr = self.tracker
+        extra = {}
+        if tr.bow_index is not None:
+            v = tr.bow_index.vocab
+            extra = {"bow_words": v.words, "bow_groups": v.groups,
+                     "bow_idf": v.idf,
+                     "bow_meta": np.array([v.branching, v.depth], np.int64),
+                     "bow_kf_wid": tr.bow_index.kf_wid,
+                     "bow_kf_w": tr.bow_index.kf_w,
+                     "bow_kf_feat_word": tr.bow_index.kf_feat_word,
+                     "bow_kf_valid": tr.bow_index.kf_valid}
+            if v.tree_centers is not None and len(v.tree_centers):
+                extra.update(bow_tree_centers=v.tree_centers,
+                             bow_tree_child=v.tree_child,
+                             bow_tree_root=np.int64(v.tree_root))
+        tr.map.save(path, extra=extra)
+
+    def load_map(self, path: str, localization_only: bool = True):
+        """Restore a saved map into the tracker. The session starts LOST and
+        enters the map through BoW + PnP relocalization on its first frames;
+        by default the map stays frozen (localization-only mode)."""
+        tr = self.tracker
+        loaded = SlamMap.load(path)
+        if loaded.n_kf == 0 or not loaded.kf_valid[: loaded.n_kf].any():
+            raise ValueError(f"{path}: map has no valid keyframes "
+                             "(saved before initialization?)")
+        tr.map = loaded
+        # device copies of the old map's feature rows are keyed by keyframe
+        # id and version, which the loaded map reuses
+        tr.mapper._dev_feats.clear()
+        z = np.load(path)
+        if "bow_kf_vec" in z or "bow_kf_words" in z:
+            raise ValueError(
+                f"{path}: checkpoint predates the sparse-BoW format "
+                "(found dense bow_kf_vec/bow_kf_words keys); re-save the "
+                "map with this version to upgrade")
+        if "bow_words" in z:
+            tree = {}
+            if "bow_tree_centers" in z:
+                tree = dict(tree_centers=np.array(z["bow_tree_centers"]),
+                            tree_child=np.array(z["bow_tree_child"]),
+                            tree_root=int(z["bow_tree_root"]))
+            vocab = Vocabulary(words=z["bow_words"], groups=z["bow_groups"],
+                               idf=z["bow_idf"],
+                               branching=int(z["bow_meta"][0]),
+                               depth=int(z["bow_meta"][1]), **tree)
+            tr.bow_index = BowIndex(vocab, max_kf=len(z["bow_kf_valid"]),
+                                    device=tr.device)
+            tr.bow_index.kf_wid = np.array(z["bow_kf_wid"])
+            tr.bow_index.kf_w = np.array(z["bow_kf_w"])
+            tr.bow_index.kf_feat_word = np.array(z["bow_kf_feat_word"])
+            tr.bow_index.kf_valid = np.array(z["bow_kf_valid"])
+            tr.loop_closer = LoopCloser(tr.bow_index, tr.cam,
+                                        device=tr.device)
+        tr.state = State.LOST  # re-enter via relocalization
+        tr._last_kf = int(np.nonzero(tr.map.kf_valid[: tr.map.n_kf])[0][-1])
+        tr._last_R = np.eye(3, dtype=np.float32)
+        tr._last_t = np.zeros(3, np.float32)
+        tr._rebuild_cache()
+        tr.localization_only = localization_only
+
+    def activate_localization_mode(self):
+        """Track against the frozen map, stop mapping (reference
+        System::ActivateLocalizationMode)."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.localization_only = False
