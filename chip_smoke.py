@@ -5,11 +5,16 @@
 Phases (any failure raises and the script exits non-zero):
   1. build the hand-written CUDA kernels from ygz_tpu_torch/csrc/;
   2. check each kernel against its plain PyTorch version on the card
-     (bit-exact) at the shapes the main path gives it, and time both;
+     (bit-exact) at the shapes the main path gives it, and time both: the
+     single-threshold FAST-10 map per pyramid level, and the fused
+     extraction front (one launch per stacked pyramid) against the
+     composite it replaced (two score launches per level + the eager
+     merge and NMS), in turns in this call;
   3. render an EuRoC-cadence 752x480, f=458 sequence of 160 frames (numpy),
      with one sudden exposure drop, and run System.track_monocular over it
      on the card with the default configuration (BoW, relocalization and
-     loop closing on, the shipped vocabulary); count kernel launches;
+     loop closing on, the shipped vocabulary); count kernel launches (one
+     fused launch per extraction);
   4. check the result: frames OK after init, new keyframes, the feature
      fallback ladder recovering the under-exposed frame, 7-DoF ATE against
      the ground truth, every alive keyframe in the BoW index, and the frame
@@ -28,6 +33,7 @@ of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -46,6 +52,15 @@ DARK_FRAME, DARK_GAIN = 80, 0.4
 # on the recovered camera centre is 1% of the path (~0.083 on 8.33)
 REVISIT, RELOC_BOUND = 120, 0.01
 LEVEL_SHAPES = [(480, 752), (240, 376), (120, 188), (60, 94)]
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# operations per pixel of the kernels' arithmetic (csrc/fast_score.cu): the
+# arc test is 16 differences, the side test (4 min, 3 max, a compare), 16
+# sign flips and the sliding minimum (44 min + 15 max); a threshold is a
+# subtract, a compare and an add; the merge a compare, an add and a select;
+# the separable NMS 5 max, a compare and a select
+ARC_OPS, TH_OPS, MERGE_OPS, NMS_OPS = 16 + 8 + 16 + 59, 3, 3, 7
 
 
 def euroc_pose(i):
@@ -76,6 +91,9 @@ def render_sequence(n):
 
 
 def time_cuda(fn, iters):
+    """Mean ms per call by CUDA events over `iters` calls after a warm-up
+    (for a launch through ctypes this is the host's issue rate once it
+    exceeds the device time)."""
     import torch
 
     for _ in range(3):
@@ -90,17 +108,58 @@ def time_cuda(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_time(fn, iters):
+    """(device ms per call, device kernels per call) by torch.profiler over
+    `iters` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in dev)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return 1e-3 * us / iters, sum(e.count for e in dev) / iters
+
+
+def bound(n_bytes, n_ops):
+    """(least ms on the card, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def interior(h, w):
+    """Pixels off the 3-px frame, the ones that run the arc test."""
+    return max(h - 6, 0) * max(w - 6, 0)
+
+
+def stacked_pyramid(frame):
+    import torch
+    from ygz_tpu_torch.frontend.framestep import build_pyramid_stacked
+
+    return build_pyramid_stacked(torch.as_tensor(frame, device="cuda"), None,
+                                 4)
+
+
 def check_fast_kernel(frame):
-    """Kernel vs plain version on the four pyramid levels of a real frame
-    at both thresholds of the path; returns the kernel's record."""
+    """Single-threshold kernel vs plain version on the four pyramid levels
+    of a real frame at both thresholds of the extractor; returns the
+    kernel's record (times at level 0, every level printed)."""
     import torch
     from ygz_tpu_torch.ops import fast
-    from ygz_tpu_torch.frontend.framestep import build_pyramid_stacked
     from ygz_tpu_torch.ops.image import unstack_pyramid
 
-    stack = build_pyramid_stacked(torch.as_tensor(frame, device="cuda"),
-                                  None, 4)
-    levels = [lv.contiguous() for lv in unstack_pyramid(stack, 4, height=H)]
+    levels = [lv.contiguous()
+              for lv in unstack_pyramid(stacked_pyramid(frame), 4, height=H)]
     if [tuple(lv.shape) for lv in levels] != LEVEL_SHAPES:
         raise RuntimeError(f"level shapes {[lv.shape for lv in levels]}")
     max_err = 0.0
@@ -118,15 +177,138 @@ def check_fast_kernel(frame):
                                    f"max |err| {err}")
             if int((got > 0).sum()) == 0:
                 raise RuntimeError(f"no corners at {tuple(lv.shape)} th={th}")
-        ms = time_cuda(lambda: fast.fast_score_map(lv, 20.0), 200)
-        plain_ms = time_cuda(lambda: fast.fast_score_map_torch(lv, 20.0), 50)
-        rows.append((tuple(lv.shape), ms, plain_ms))
-        print(f"fast_score {lv.shape[0]}x{lv.shape[1]} th=20: kernel "
-              f"{ms:.5f} ms, plain {plain_ms:.5f} ms (bit-exact at th 20, 7)")
+        h, w = lv.shape
+        row = {"shape": [h, w],
+               "event_ms": time_cuda(lambda: fast.fast_score_map(lv, 20.0),
+                                     200),
+               "plain_event_ms": time_cuda(
+                   lambda: fast.fast_score_map_torch(lv, 20.0), 50),
+               "ms": device_time(lambda: fast.fast_score_map(lv, 20.0),
+                                 200)[0],
+               "plain_ms": device_time(
+                   lambda: fast.fast_score_map_torch(lv, 20.0), 20)[0]}
+        row["bound_ms"], row["bound_by"] = bound(
+            8 * h * w, interior(h, w) * (ARC_OPS + TH_OPS))
+        rows.append(row)
+        print(f"fast_score {h}x{w} th=20: device {1e3 * row['ms']:.3f} us "
+              f"(bound {1e3 * row['bound_ms']:.3f} us by {row['bound_by']}, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of it), plain "
+              f"{1e3 * row['plain_ms']:.3f} us; CUDA events per call "
+              f"{row['event_ms']:.5f} ms kernel, {row['plain_event_ms']:.5f} "
+              f"ms plain (bit-exact at th 20, 7)")
     return {"name": "fast_score", "route": "cuda",
             "source": "ygz_tpu_torch/csrc/fast_score.cu",
             "replaces": "ygz_tpu/ops/pallas_fast.py:76",
-            "max_abs_err": max_err, "ms": rows[0][1], "plain_ms": rows[0][2]}
+            "max_abs_err": max_err, "ms": rows[0]["ms"],
+            "plain_ms": rows[0]["plain_ms"],
+            "event_ms": rows[0]["event_ms"],
+            "bound_ms": rows[0]["bound_ms"],
+            "bound_us": 1e3 * rows[0]["bound_ms"],
+            "bound_by": rows[0]["bound_by"], "library_ms": None,
+            "levels": rows}
+
+
+def composite_front(stack):
+    """The extraction front as the extractor ran it before the fused
+    kernel: per level two single-threshold launches, the eager merge and
+    nonmax_3x3, stacked like the fused output."""
+    import torch
+    from ygz_tpu_torch.ops import fast
+    from ygz_tpu_torch.ops.image import stack_rows, unstack_pyramid
+
+    out = torch.zeros_like(stack)
+    offs, _ = stack_rows(H, W, 4)
+    for o, lv in zip(offs, unstack_pyramid(stack, 4, height=H)):
+        img = lv.contiguous()
+        hi = fast.fast_score_map(img, 20.0)
+        lo = fast.fast_score_map(img, 7.0)
+        out[o: o + img.shape[0], : img.shape[1]] = fast.nonmax_3x3(
+            torch.where(hi > 0, hi + 1000.0, lo))
+    return out
+
+
+def check_fast_corners(frames):
+    """Fused front vs its plain version (and vs the composite) on the
+    stacked pyramids of frame 0 and of the dark frame, bit-exact; then the
+    composite and the fused launch timed in turns; returns the record."""
+    import torch
+    from ygz_tpu_torch.ops import fast
+
+    max_err = 0.0
+    for i in (0, DARK_FRAME):
+        stack = stacked_pyramid(frames[i])
+        got = fast.fast_corner_maps(stack, H, 4, 20.0, 7.0)
+        want = fast.fast_corner_maps_torch(stack, H, 4, 20.0, 7.0)
+        old = composite_front(stack)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        if not (torch.equal(got, want) and torch.equal(got, old)):
+            raise RuntimeError(f"fast_corners kernel differs on frame {i}: "
+                               f"max |err| {err} against the plain version")
+        n_hi = int((got > 1000).sum())
+        n_lo = int(((got > 0) & (got <= 1000)).sum())
+        print(f"fast_corners frame {i}: bit-exact against the plain version "
+              f"and the composite; {n_hi} high- and {n_lo} low-threshold "
+              f"corners after NMS")
+        if n_hi + n_lo == 0:
+            raise RuntimeError(f"no corners on frame {i}")
+    stack = stacked_pyramid(frames[0])
+    fused = lambda: fast.fast_corner_maps(stack, H, 4, 20.0, 7.0)  # noqa: E731
+    comp = lambda: composite_front(stack)  # noqa: E731
+    ev = [time_cuda(f, 200) for f in (comp, fused, fused, comp)]
+    dev = [device_time(f, 200) for f in (comp, fused, fused, comp)]
+    plain_ms, plain_n = device_time(
+        lambda: fast.fast_corner_maps_torch(stack, H, 4, 20.0, 7.0), 20)
+    pixels = sum(h * w for h, w in LEVEL_SHAPES)
+    ops = (sum(interior(h, w) for h, w in LEVEL_SHAPES)
+           * (ARC_OPS + 2 * TH_OPS + MERGE_OPS) + pixels * NMS_OPS)
+    # the level pixels read once; the whole stacked map (pad zeros
+    # included) written once
+    n_bytes = 4 * (pixels + stack.numel())
+    bound_ms, bound_by = bound(n_bytes, ops)
+    ms = 0.5 * (dev[1][0] + dev[2][0])
+    comp_ms = 0.5 * (dev[0][0] + dev[3][0])
+    print(f"fast_corners vs composite in turns (composite, fused, fused, "
+          f"composite): CUDA events {[round(e, 5) for e in ev]} ms per "
+          f"extraction; device {[round(1e3 * d[0], 3) for d in dev]} us; "
+          f"device kernels per extraction {[d[1] for d in dev]}")
+    print(f"fast_corners: device {1e3 * ms:.3f} us per extraction, bound "
+          f"{1e3 * bound_ms:.3f} us by {bound_by} ({n_bytes} B, {ops} "
+          f"operations; {100 * bound_ms / ms:.1f}% of it); composite "
+          f"{1e3 * comp_ms:.3f} us over {dev[0][1]:.0f} kernels; plain "
+          f"version {1e3 * plain_ms:.3f} us over {plain_n:.0f} kernels")
+    return {"name": "fast_corners", "route": "cuda",
+            "source": "ygz_tpu_torch/csrc/fast_score.cu",
+            "replaces": "ygz_tpu/ops/pallas_fast.py:76",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "event_ms": 0.5 * (ev[1] + ev[2]),
+            "composite_ms": comp_ms, "composite_event_ms": 0.5 * (ev[0]
+                                                                  + ev[3]),
+            "composite_launches_per_extraction": dev[0][1],
+            "launches_per_extraction": dev[1][1],
+            "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+@contextlib.contextmanager
+def counted_extractions():
+    """Counts OrbExtractor calls (keyframe extraction included) while the
+    block runs: one list entry per call."""
+    from ygz_tpu_torch.frontend.extractor import OrbExtractor
+
+    calls = []
+    real = OrbExtractor.__call__
+
+    def counted(self, *args, **kw):
+        calls.append(1)
+        return real(self, *args, **kw)
+
+    OrbExtractor.__call__ = counted
+    try:
+        yield calls
+    finally:
+        OrbExtractor.__call__ = real
 
 
 def euroc_camera():
@@ -299,12 +481,13 @@ def check_relocalization(system, frames, poses, align, length):
     """Three black frames must lose the tracker; the view of frame REVISIT
     must then relocalize it within 3 tries, its camera centre (through the
     main run's 7-DoF alignment) within RELOC_BOUND of the path of the true
-    one, and the 10 frames after it must all track. Returns the FAST
+    one, and the 10 frames after it must all track. Returns the fused FAST
     launches on this path."""
     from ygz_tpu_torch.ops import fast
 
     ts = len(system.trajectory) * 0.05
     fast.fast_score_map.launches = 0
+    fast.fast_corner_maps.launches = 0
     black = np.zeros_like(frames[0])
     for _ in range(3):
         state = system.track_monocular(black, ts)[0]
@@ -313,11 +496,11 @@ def check_relocalization(system, frames, poses, align, length):
         raise RuntimeError(f"black frames left the tracker {state}")
     attempts = []
     for _ in range(3):
-        before = fast.fast_score_map.launches
+        before = fast.fast_corner_maps.launches
         t0 = time.perf_counter()
         state, T = system.track_monocular(frames[REVISIT], ts)
         attempts.append((1e3 * (time.perf_counter() - t0),
-                         fast.fast_score_map.launches - before))
+                         fast.fast_corner_maps.launches - before))
         ts += 0.05
         if state == "OK":
             break
@@ -332,21 +515,22 @@ def check_relocalization(system, frames, poses, align, length):
     for k in range(1, 11):
         forward.append(system.track_monocular(frames[REVISIT + k], ts)[0])
         ts += 0.05
-    launches = fast.fast_score_map.launches
+    launches = fast.fast_corner_maps.launches
     print(f"relocalization: LOST after 3 black frames; OK on try "
           f"{len(attempts)} at the view of frame {REVISIT}: camera centre "
           f"{err:.5f} from the truth (bound {RELOC_BOUND * length:.5f}); "
-          f"attempts (ms, FAST launches) {attempts}; next 10 frames "
-          f"{forward}; FAST launches on this path {launches}; "
+          f"attempts (ms, fused FAST launches) {attempts}; next 10 frames "
+          f"{forward}; fused FAST launches on this path {launches}, "
+          f"single-threshold {fast.fast_score_map.launches}; "
           f"'relocalize' stage mean "
           f"{system.tracker.timer.mean_ms()['relocalize']:.2f} ms")
     if err > RELOC_BOUND * length:
         raise RuntimeError(f"relocalized {err:.5f} from the true pose")
     if forward != ["OK"] * 10:
         raise RuntimeError(f"tracking after relocalization: {forward}")
-    if launches == 0 or attempts[-1][1] < 8:
-        raise RuntimeError("relocalization never launched the fast_score "
-                           "kernel")
+    if any(a[1] < 1 for a in attempts) or fast.fast_score_map.launches:
+        raise RuntimeError("a relocalization attempt did not go through "
+                           "the fused fast_corners kernel")
     return launches
 
 
@@ -483,7 +667,7 @@ def loop_scenario(vocab, seed=12):
             rng.integers(0, 2, (512, 256)).astype(np.uint8)))
     kf = smap.add_keyframe(eye, zero, feats(project(Xd), desc))
     landmarks(kf, Xd)
-    bow = BowIndex(vocab, max_kf=16, max_feat=512)
+    bow = BowIndex(vocab, max_kf=16, max_feat=512, device="cpu")
     for k in range(smap.n_kf):
         wid, b = bow.quantize(smap.kf_feat_desc[k], smap.kf_feat_valid[k])
         bow.add_keyframe(k, b, feat_wid=wid)
@@ -573,28 +757,37 @@ def main() -> int:
     scene, poses, frames = render_sequence(N_FRAMES + 3)
     print(f"rendered {len(frames)} frames {W}x{H} in "
           f"{time.perf_counter() - t0:.1f} s")
-    record = check_fast_kernel(frames[0])
+    score_rec = check_fast_kernel(frames[0])
+    corners_rec = check_fast_corners(frames)
 
     fast.fast_score_map.launches = 0
-    system, states, ladder, secs = run_main_path(frames[:N_FRAMES], "cuda")
+    fast.fast_corner_maps.launches = 0
+    with counted_extractions() as extractions:
+        system, states, ladder, secs = run_main_path(frames[:N_FRAMES],
+                                                     "cuda")
     torch.cuda.synchronize()
-    record["launches"] = fast.fast_score_map.launches
+    corners_rec["launches"] = fast.fast_corner_maps.launches
+    score_rec["launches"] = fast.fast_score_map.launches
     print(f"main path: {N_FRAMES} frames in {secs:.2f} s "
-          f"({1e3 * secs / N_FRAMES:.2f} ms/frame mean); fast_score "
-          f"launches {record['launches']}")
-    if record["launches"] == 0:
-        raise RuntimeError("the main path never launched the fast_score "
-                           "kernel")
+          f"({1e3 * secs / N_FRAMES:.2f} ms/frame mean); {len(extractions)} "
+          f"extractions, fast_corners launches {corners_rec['launches']}, "
+          f"single-threshold fast_score launches {score_rec['launches']}")
+    if not extractions or corners_rec["launches"] != len(extractions) \
+            or score_rec["launches"]:
+        raise RuntimeError("the main path did not make exactly one "
+                           "fast_corners launch per extraction")
     print(system.tracker.timer.report())
     align, length = check_result(system, states, ladder, poses[:N_FRAMES])
     check_step_vs_cpu(system, frames[N_FRAMES:])
     check_global_ba(system)
-    record["launches_relocalization"] = check_relocalization(
+    corners_rec["launches_relocalization"] = check_relocalization(
         system, frames, poses, align, length)
+    # the extractor no longer runs the single-threshold entry
+    score_rec["launches_relocalization"] = fast.fast_score_map.launches
     check_ransac()
     check_loop_correction()
 
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [score_rec, corners_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -80,7 +80,8 @@ def test_shipped_vocabulary_words_match_jax():
     np.testing.assert_array_equal(wt, jbow.assign_words_tree(desc, valid, vj))
     assert (wt[valid] >= 0).all() and (wt[~valid] == -1).all()
     # index both ways; a frame's own bow ranks its keyframe first
-    it, ij = tbow.BowIndex(vt, max_kf=4), jbow.BowIndex(vj, max_kf=4)
+    it = tbow.BowIndex(vt, max_kf=4, device="cpu")
+    ij = jbow.BowIndex(vj, max_kf=4)
     (wq, bq), (wqj, bqj) = it.quantize(desc, valid), ij.quantize(desc, valid)
     np.testing.assert_array_equal(wq, wqj)
     np.testing.assert_array_equal(bq[0], bqj[0])
@@ -97,7 +98,8 @@ def _indexes():
     doc = np.repeat(np.arange(len(places)), len(places[0]))
     vj = jbow.train_vocabulary(train, branching=8, depth=2, doc_ids=doc)
     vt = tbow.train_vocabulary(train, branching=8, depth=2, doc_ids=doc)
-    ij, it = jbow.BowIndex(vj, max_kf=4), tbow.BowIndex(vt, max_kf=4)
+    ij = jbow.BowIndex(vj, max_kf=4)
+    it = tbow.BowIndex(vt, max_kf=4, device="cpu")
     for k, d in enumerate(places):   # 6 KFs: the index grows past max_kf
         ones = np.ones(len(d), bool)
         wj, bj = ij.quantize(d, ones)
@@ -147,7 +149,7 @@ def test_flat_word_lookup_matches_jax():
     desc[40:60] = _noisy(rng, words[4096:4116], flips=3)   # second chunk
     desc[60:64] = words[7]                                  # duplicates
     valid = rng.random(300) > 0.1
-    got = tbow.WordLookup(words).assign(desc, valid)
+    got = tbow.WordLookup(words, device="cpu").assign(desc, valid)
     want = jbow.WordLookup(words).assign(desc, valid)
     np.testing.assert_array_equal(got, want)
     assert (got[~valid] == -1).all()
@@ -155,7 +157,8 @@ def test_flat_word_lookup_matches_jax():
     voc = tbow.Vocabulary(words=words, groups=np.arange(5000) % 50,
                           idf=np.ones(5000, np.float32), branching=10,
                           depth=2)
-    wid, _ = tbow.BowIndex(voc, max_kf=2).quantize(desc, valid)
+    wid, _ = tbow.BowIndex(voc, max_kf=2, device="cpu").quantize(desc,
+                                                                 valid)
     np.testing.assert_array_equal(wid, want)
 
 

@@ -55,6 +55,52 @@ def test_fast_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         fast.fast_score_map(x.half(), 20.0)
 
 
+# stacked 4-level pyramids: EuRoC (480x752 .. 60x94), ragged (101x137 ..
+# 12x17) and one whose top level (5x6) is all 3-px frame
+PYRAMIDS = [(480, 752), (101, 137), (40, 52)]
+
+
+def _stacked(img, device):
+    from ygz_tpu_torch.ops.image import build_pyramid, stack_pyramid
+
+    return stack_pyramid(build_pyramid(torch.as_tensor(img, device=device),
+                                       4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PYRAMIDS)
+def test_fast_corners_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    imgs = [rng.uniform(0, 255, shape).astype(np.float32),
+            rng.integers(0, 256, shape).astype(np.float32)]
+    if shape == PYRAMIDS[0]:
+        scene = SmoothScene(seed=11, w=shape[1], h=shape[0], f=458.0,
+                            tex_size=2000)
+        imgs.append(render_u8(scene, np.eye(3), np.zeros(3)))
+    for img in imgs:
+        stack = _stacked(img, cuda)
+        for th_hi, th_lo in ((20.0, 7.0), (2.0, 1.0)):
+            before = fast.fast_corner_maps.launches
+            got = fast.fast_corner_maps(stack, shape[0], 4, th_hi, th_lo)
+            assert fast.fast_corner_maps.launches == before + 1
+            torch.cuda.synchronize()
+            # one arc value for both thresholds, exact min/max, the
+            # reference's adds in its order: bit-exact
+            assert torch.equal(got, fast.fast_corner_maps_torch(
+                stack, shape[0], 4, th_hi, th_lo))
+
+
+@pytest.mark.cuda
+def test_fast_corners_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    stack = _stacked(np.zeros((64, 96), np.float32), cuda)
+    with pytest.raises(ValueError):
+        fast.fast_corner_maps(stack.t().contiguous().t(), 64, 4, 20.0, 7.0)
+    with pytest.raises(TypeError):
+        fast.fast_corner_maps(stack.half(), 64, 4, 20.0, 7.0)
+    with pytest.raises(ValueError):
+        fast.fast_corner_maps(stack[:-1], 64, 4, 20.0, 7.0)
+
+
 def _pnp_problem(rng, n=512, n_out=154):
     """PnP with 30% outliers: world points, pixels, truth (R, t)."""
     from ygz_tpu_torch.geometry.lie import so3_exp

@@ -101,7 +101,7 @@ def _revisit_map():
         prev = kf
     vocab = tbow.train_vocabulary(np.concatenate(places), branching=8,
                                   depth=2)
-    index = tbow.BowIndex(vocab, max_kf=16)
+    index = tbow.BowIndex(vocab, max_kf=16, device="cpu")
     bows = []
     for k in range(14):
         wid, bow = index.quantize(descs[k], np.ones(n, bool))
@@ -169,7 +169,8 @@ class _NoBow:   # compute_sim3 without the node gate (kf_valid all False)
 def _bow_of(smap):
     vocab = tbow.train_vocabulary(smap.kf_feat_desc[: smap.n_kf].reshape(
         -1, 256)[: 2000], branching=8, depth=2)
-    index = tbow.BowIndex(vocab, max_kf=16, max_feat=smap.max_feat)
+    index = tbow.BowIndex(vocab, max_kf=16, max_feat=smap.max_feat,
+                           device="cpu")
     for k in range(smap.n_kf):
         wid, bow = index.quantize(smap.kf_feat_desc[k], smap.kf_feat_valid[k])
         index.add_keyframe(k, bow, feat_wid=wid)

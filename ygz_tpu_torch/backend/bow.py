@@ -223,7 +223,7 @@ class WordLookup:
     """Device descriptor -> word assignment for flat vocabularies of any
     size (fixed-shape chunks)."""
 
-    def __init__(self, words: np.ndarray, device="cpu"):
+    def __init__(self, words: np.ndarray, device="cuda"):
         self.n_words = len(words)
         self.device = torch.device(device)
         C = (self.n_words + WORD_CHUNK - 1) // WORD_CHUNK
@@ -256,7 +256,7 @@ class BowIndex:
     stores only its own word ids + weights ([max_feat] padded)."""
 
     def __init__(self, vocab: Vocabulary, max_kf: int = 256,
-                 max_feat: int = 1024, device="cpu"):
+                 max_feat: int = 1024, device="cuda"):
         self.vocab = vocab
         # tree descent when the vocabulary carries its hierarchy; the flat
         # device argmin only for vocabularies saved without one

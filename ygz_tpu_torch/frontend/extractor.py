@@ -1,8 +1,10 @@
 """Multi-level ORB feature extraction.
 
-Port of ``ygz_tpu/frontend/extractor.py`` (grid mode): per pyramid level,
-FAST-10 scores at two thresholds (the CUDA kernel for CUDA tensors) ->
-merge -> 3x3 NMS -> grid-capped top-k -> IC angle -> steered BRIEF on the
+Port of ``ygz_tpu/frontend/extractor.py`` (grid mode): FAST-10 scores at
+two thresholds -> merge -> 3x3 NMS over the whole stacked pyramid (one
+launch of the CUDA kernel for CUDA tensors,
+``ops/fast.py::fast_corner_maps``), then per level grid-capped top-k -> IC
+angle -> steered BRIEF on the
 blurred level, with fixed per-level keypoint budgets. Keypoint uv is
 reported in LEVEL-0 pixels; `level` records the octave.
 """
@@ -13,7 +15,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops import fast, orb, select
-from ..ops.image import as_levels, gaussian_blur
+from ..ops.image import (as_levels, gaussian_blur, stack_and_height,
+                         stack_rows)
 
 
 class Features(NamedTuple):
@@ -58,13 +61,10 @@ class OrbExtractor:
         self.budgets = level_budgets(n_features, n_levels, scale_factor)
         self.total = sum(self.budgets)
 
-    def _extract_level(self, img, budget, border, occupancy=None):
-        score = fast.fast_score_map(img, self.fast_th)
-        score_lo = fast.fast_score_map(img, self.fast_th_min)
-        # high-threshold corners rank first; the low threshold fills cells
-        # the high one left empty
-        merged = fast.nonmax_3x3(torch.where(score > 0, score + 1000.0,
-                                             score_lo))
+    def _extract_level(self, img, merged, budget, border, occupancy=None):
+        """Keypoints of one level from its merged, suppressed corner map
+        (high-threshold corners rank first; the low threshold fills cells
+        the high one left empty)."""
         uv, s, valid = select.select_grid_topk(
             merged, cell=self.cell, max_per_cell=self.max_per_cell,
             max_kp=budget, border=border, occupancy=occupancy)
@@ -74,16 +74,25 @@ class OrbExtractor:
         return uv, s, valid, ang, desc
 
     def __call__(self, pyramid, occupancy=None) -> Features:
-        pyramid = as_levels(pyramid, self.n_levels, self.scale_factor)
+        stack, height = stack_and_height(pyramid, self.n_levels)
+        stack = stack.contiguous()
+        corners = fast.fast_corner_maps(stack, height, self.n_levels,
+                                        self.fast_th, self.fast_th_min,
+                                        self.scale_factor)
+        offs, _ = stack_rows(height, stack.shape[1], self.n_levels,
+                             self.scale_factor)
+        pyramid = as_levels(pyramid, self.n_levels, self.scale_factor, height)
         outs = []
         for lvl in range(self.n_levels):
             img = pyramid[lvl].contiguous()
+            h, w = img.shape
             scale = self.scale_factor ** lvl
             occ = occupancy[lvl] if occupancy is not None else None
             # border shrinks with level so level-0 coverage stays constant
             border = max(8, int(round(self.border / scale)))
             uv, s, valid, ang, desc = self._extract_level(
-                img, self.budgets[lvl], border, occ)
+                img, corners[offs[lvl]: offs[lvl] + h, :w],
+                self.budgets[lvl], border, occ)
             outs.append(((uv + 0.5) * scale - 0.5,
                          torch.full((uv.shape[0],), lvl, dtype=torch.int32,
                                     device=uv.device), ang, s, desc, valid))
@@ -93,13 +102,13 @@ class OrbExtractor:
         """Descriptors/angles at the tracked positions + occupancy stamping
         around them + fresh features in the unoccupied area. Returns
         (angle [M], desc [M, 256], Features)."""
-        pyramid = as_levels(pyramid, self.n_levels, self.scale_factor)
-        ang, desc = describe_at_core(pyramid, uv0, level, valid,
+        levels = as_levels(pyramid, self.n_levels, self.scale_factor)
+        ang, desc = describe_at_core(levels, uv0, level, valid,
                                      self.n_levels, self.scale_factor)
         occ = []
         for lvl in range(self.n_levels):
             s = 0.5 ** lvl
-            h, w = pyramid[lvl].shape
+            h, w = levels[lvl].shape
             occ.append(select.stamp_occupancy(
                 h, w, (uv0 + 0.5) * s - 0.5, valid, radius=max(4, int(8 * s))))
         return ang, desc, self(pyramid, occ)

@@ -1,10 +1,17 @@
 """FAST-10 corner scores + 3x3 non-maximum suppression, full image.
 
-Port of ``ygz_tpu/ops/fast.py``. ``fast_score_map`` is the wrapper of the
-hand-written CUDA kernel ``csrc/fast_score.cu`` (the Hopper port of the TPU
-kernel ``ygz_tpu/ops/pallas_fast.py::fast_score_map_pallas``): a CUDA
-tensor launches the kernel, a CPU tensor takes the plain PyTorch version
-``fast_score_map_torch``, anything else raises. Both give the same bits.
+Port of ``ygz_tpu/ops/fast.py``. Two wrappers of the hand-written CUDA
+source ``csrc/fast_score.cu`` (the Hopper port of the TPU kernel
+``ygz_tpu/ops/pallas_fast.py::fast_score_map_pallas``):
+
+- ``fast_score_map``: the score map of one image at one threshold;
+- ``fast_corner_maps``: the extractor's front over a whole stacked pyramid
+  in one launch (both thresholds, the merge and the NMS).
+
+A CUDA tensor launches the kernel, a CPU tensor takes the plain PyTorch
+version (``fast_score_map_torch``, ``fast_corner_maps_torch``), anything
+else raises. Kernel and plain version give the same bits for any threshold
+>= 0 (a FAST threshold); the wrappers refuse a negative one.
 """
 from __future__ import annotations
 
@@ -12,12 +19,16 @@ import ctypes
 
 import torch
 
+from .image import pyramid_shapes, stack_rows, unstack_pyramid
+
 # Bresenham circle of radius 3 — (dx, dy), clockwise from (0,-3).
 CIRCLE = (
     (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
     (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3),
 )
 ARC = 10  # FAST-10
+# high-threshold corners rank above every low-threshold one in the merge
+HI_BONUS = 1000.0
 
 
 def _shift(img, dx, dy):
@@ -49,45 +60,6 @@ def fast_score_map_torch(img, threshold: float = 20.0):
     return torch.where(frame, score, zero)
 
 
-def _launch_cuda(img, threshold):
-    from ..utils import cuda_build
-
-    lib = cuda_build.load("fast_score")
-    fn = lib.ygz_fast_score
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty_like(img)
-    H, W = img.shape
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = fn(img.data_ptr(), out.data_ptr(), H, W, float(threshold), stream)
-    if err != 0:
-        raise RuntimeError(f"fast_score kernel launch failed: CUDA error "
-                           f"{err}")
-    fast_score_map.launches += 1
-    return out
-
-
-def fast_score_map(img, threshold: float = 20.0):
-    """FAST-10 corner response [H, W] float32 of a 2-D float32 image.
-
-    CUDA tensors run the hand-written kernel (counted in
-    ``fast_score_map.launches``); CPU tensors run the plain version."""
-    if not isinstance(img, torch.Tensor) or img.dim() != 2 \
-            or img.dtype != torch.float32:
-        raise TypeError("fast_score_map takes a 2-D float32 tensor")
-    if img.device.type == "cuda":
-        if not img.is_contiguous():
-            raise ValueError("fast_score_map needs a contiguous CUDA tensor")
-        return _launch_cuda(img, threshold)
-    if img.device.type == "cpu":
-        return fast_score_map_torch(img, threshold)
-    raise ValueError(f"fast_score_map: unsupported device {img.device}")
-
-
-fast_score_map.launches = 0
-
-
 def nonmax_3x3(score):
     """Keep only 3x3-neighbourhood maxima (ties kept)."""
     neigh = score
@@ -96,3 +68,109 @@ def nonmax_3x3(score):
             if dx or dy:
                 neigh = torch.maximum(neigh, _shift(score, dx, dy))
     return torch.where(score >= neigh, score, torch.zeros_like(score))
+
+
+def _kernel(name, argtypes):
+    from ..utils import cuda_build
+
+    fn = getattr(cuda_build.load("fast_score"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_launch(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _check_args(x, name, *thresholds):
+    if not isinstance(x, torch.Tensor) or x.dim() != 2 \
+            or x.dtype != torch.float32:
+        raise TypeError(f"{name} takes a 2-D float32 tensor")
+    # the kernels' exactness argument (csrc/fast_score.cu) needs th >= 0
+    if not all(th >= 0.0 for th in thresholds):
+        raise ValueError(f"{name}: FAST thresholds must be >= 0, got "
+                         f"{thresholds}")
+
+
+def fast_score_map(img, threshold: float = 20.0):
+    """FAST-10 corner response [H, W] float32 of a 2-D float32 image.
+
+    CUDA tensors run the hand-written kernel (counted in
+    ``fast_score_map.launches``); CPU tensors run the plain version."""
+    _check_args(img, "fast_score_map", threshold)
+    if img.device.type == "cuda":
+        if not img.is_contiguous():
+            raise ValueError("fast_score_map needs a contiguous CUDA tensor")
+        fn = _kernel("ygz_fast_score",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        out = torch.empty_like(img)
+        H, W = img.shape
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        _check_launch(fn(img.data_ptr(), out.data_ptr(), H, W,
+                         float(threshold), stream), "fast_score")
+        fast_score_map.launches += 1
+        return out
+    if img.device.type == "cpu":
+        return fast_score_map_torch(img, threshold)
+    raise ValueError(f"fast_score_map: unsupported device {img.device}")
+
+
+fast_score_map.launches = 0
+
+
+def fast_corner_maps_torch(stack, height: int, n_levels: int, th_hi: float,
+                           th_lo: float):
+    """Plain PyTorch extraction front of a stacked [SH, W0] pyramid: per
+    level nonmax_3x3(where(fast(th_hi) > 0, fast(th_hi) + 1000,
+    fast(th_lo))), stacked the same way, 0 in the pad columns."""
+    out = torch.zeros_like(stack)
+    offs, _ = stack_rows(height, stack.shape[1], n_levels)
+    for o, lv in zip(offs, unstack_pyramid(stack, n_levels, height=height)):
+        hi = fast_score_map_torch(lv, th_hi)
+        lo = fast_score_map_torch(lv, th_lo)
+        h, w = lv.shape
+        out[o: o + h, :w] = nonmax_3x3(torch.where(hi > 0, hi + HI_BONUS, lo))
+    return out
+
+
+def fast_corner_maps(stack, height: int, n_levels: int, th_hi: float,
+                     th_lo: float, scale_factor: float = 2.0):
+    """Merged, non-maximum-suppressed FAST-10 corner maps of every level of
+    a contiguous stacked [SH, W0] float32 pyramid (level-0 height
+    `height`), as one stacked [SH, W0] map.
+
+    CUDA tensors run one launch of the hand-written kernel (counted in
+    ``fast_corner_maps.launches``); CPU tensors run the plain version."""
+    _check_args(stack, "fast_corner_maps", th_hi, th_lo)
+    if not stack.is_contiguous():
+        raise ValueError("fast_corner_maps needs a contiguous stacked buffer")
+    w0 = stack.shape[1]
+    offs, total = stack_rows(height, w0, n_levels, scale_factor)
+    if total != stack.shape[0]:
+        raise ValueError(f"stack has {stack.shape[0]} rows; {n_levels} "
+                         f"levels of height {height} take {total}")
+    if stack.device.type == "cuda":
+        shapes = pyramid_shapes(height, w0, n_levels, scale_factor)
+        ints = ctypes.c_int * n_levels
+        p_int = ctypes.POINTER(ctypes.c_int)
+        fn = _kernel("ygz_fast_corners",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      p_int, p_int, p_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_float, ctypes.c_void_p])
+        out = torch.empty_like(stack)
+        stream = torch.cuda.current_stream(stack.device).cuda_stream
+        _check_launch(fn(stack.data_ptr(), out.data_ptr(), w0, ints(*offs),
+                         ints(*(h for h, _ in shapes)),
+                         ints(*(w for _, w in shapes)), n_levels,
+                         float(th_hi), float(th_lo), stream), "fast_corners")
+        fast_corner_maps.launches += 1
+        return out
+    if stack.device.type == "cpu":
+        return fast_corner_maps_torch(stack, height, n_levels, th_hi, th_lo)
+    raise ValueError(f"fast_corner_maps: unsupported device {stack.device}")
+
+
+fast_corner_maps.launches = 0
