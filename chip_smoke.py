@@ -1,4 +1,4 @@
-"""Chip smoke test: drive the PyTorch port's monocular SLAM on one GPU.
+"""Chip smoke test: drive the PyTorch port's SLAM on one GPU.
 
     python3 chip_smoke.py
 
@@ -27,7 +27,18 @@ Phases (any failure raises and the script exits non-zero):
   8. loop correction at EuRoC size: a 13-keyframe chain whose last keyframe
      sees the first one's landmarks as drifted duplicates; compute_sim3 must
      recover the drift and correct() must close the seam and fuse them, the
-     same on the card and on the CPU.
+     same on the card and on the CPU;
+  9. stereo: System.track_stereo over 80 rectified pairs at the EuRoC stereo
+     rig's geometry (752x480, f=435.2, bf=47.906), 20 fps; one-frame init,
+     frames OK, metric ATE (6-DoF, no scale) and span, stereo observations
+     in the BA problem, one fused FAST launch per extraction; then the
+     disparity search of one keyframe's 1024 features, card vs CPU;
+  10. RGB-D: the fused FAST front held bit-exact on the TUM camera's
+     640x480 pyramid (frames 0 and 46); then System.track_rgbd over 92
+     frames with depth maps at that camera's geometry (f=517.3, the virtual
+     baseline), 30 fps; the same checks, depth-seeded points in every
+     keyframe, and the first frame steps after the one-frame init, card vs
+     CPU.
 The last line is {"ok": true, "device": {...}}. Needs CUDA; imports nothing
 of JAX.
 """
@@ -61,6 +72,15 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # subtract, a compare and an add; the merge a compare, an add and a select;
 # the separable NMS 5 max, a compare and a select
 ARC_OPS, TH_OPS, MERGE_OPS, NMS_OPS = 16 + 8 + 16 + 59, 3, 3, 7
+# the stereo and RGB-D phases: the EuRoC stereo rig (examples/
+# stereo_euroc.py: f, bf = baseline * f) and the TUM fr1 camera (examples/
+# rgbd_tum.py: fx; its distortion dropped, as the renderer draws
+# undistorted views), each centred on the synthetic scene
+STEREO_F, STEREO_BF = 435.2046959714599, 47.90639384423901
+TUM_W, TUM_F = 640, 517.306408
+# 92 > 3 * kf_max_gap: RGB-D makes >= 3 keyframes beyond KF 0 whatever
+# its inlier counts
+N_STEREO_FRAMES, N_RGBD_FRAMES = 80, 92
 
 
 def euroc_pose(i):
@@ -208,7 +228,7 @@ def check_fast_kernel(frame):
             "levels": rows}
 
 
-def composite_front(stack):
+def composite_front(stack, height):
     """The extraction front as the extractor ran it before the fused
     kernel: per level two single-threshold launches, the eager merge and
     nonmax_3x3, stacked like the fused output."""
@@ -217,8 +237,8 @@ def composite_front(stack):
     from ygz_tpu_torch.ops.image import stack_rows, unstack_pyramid
 
     out = torch.zeros_like(stack)
-    offs, _ = stack_rows(H, W, 4)
-    for o, lv in zip(offs, unstack_pyramid(stack, 4, height=H)):
+    offs, _ = stack_rows(height, stack.shape[1], 4)
+    for o, lv in zip(offs, unstack_pyramid(stack, 4, height=height)):
         img = lv.contiguous()
         hi = fast.fast_score_map(img, 20.0)
         lo = fast.fast_score_map(img, 7.0)
@@ -227,35 +247,43 @@ def composite_front(stack):
     return out
 
 
-def check_fast_corners(frames):
+def hold_fast_corners(frame, label):
     """Fused front vs its plain version (and vs the composite) on the
-    stacked pyramids of frame 0 and of the dark frame, bit-exact; then the
-    composite and the fused launch timed in turns; returns the record."""
+    stacked pyramid of one frame, at the frame's own size, bit-exact;
+    returns the max |err| against the plain version."""
     import torch
     from ygz_tpu_torch.ops import fast
 
-    max_err = 0.0
-    for i in (0, DARK_FRAME):
-        stack = stacked_pyramid(frames[i])
-        got = fast.fast_corner_maps(stack, H, 4, 20.0, 7.0)
-        want = fast.fast_corner_maps_torch(stack, H, 4, 20.0, 7.0)
-        old = composite_front(stack)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        max_err = max(max_err, err)
-        if not (torch.equal(got, want) and torch.equal(got, old)):
-            raise RuntimeError(f"fast_corners kernel differs on frame {i}: "
-                               f"max |err| {err} against the plain version")
-        n_hi = int((got > 1000).sum())
-        n_lo = int(((got > 0) & (got <= 1000)).sum())
-        print(f"fast_corners frame {i}: bit-exact against the plain version "
-              f"and the composite; {n_hi} high- and {n_lo} low-threshold "
-              f"corners after NMS")
-        if n_hi + n_lo == 0:
-            raise RuntimeError(f"no corners on frame {i}")
+    height = frame.shape[0]
+    stack = stacked_pyramid(frame)
+    got = fast.fast_corner_maps(stack, height, 4, 20.0, 7.0)
+    want = fast.fast_corner_maps_torch(stack, height, 4, 20.0, 7.0)
+    old = composite_front(stack, height)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not (torch.equal(got, want) and torch.equal(got, old)):
+        raise RuntimeError(f"fast_corners kernel differs on {label}: max "
+                           f"|err| {err} against the plain version")
+    n_hi = int((got > 1000).sum())
+    n_lo = int(((got > 0) & (got <= 1000)).sum())
+    print(f"fast_corners {label} ({frame.shape[1]}x{height}): bit-exact "
+          f"against the plain version and the composite; {n_hi} high- and "
+          f"{n_lo} low-threshold corners after NMS")
+    if n_hi + n_lo == 0:
+        raise RuntimeError(f"no corners on {label}")
+    return err
+
+
+def check_fast_corners(frames):
+    """hold_fast_corners on frame 0 and the dark frame; then the composite
+    and the fused launch timed in turns; returns the record."""
+    from ygz_tpu_torch.ops import fast
+
+    max_err = max(hold_fast_corners(frames[i], f"frame {i}")
+                  for i in (0, DARK_FRAME))
     stack = stacked_pyramid(frames[0])
     fused = lambda: fast.fast_corner_maps(stack, H, 4, 20.0, 7.0)  # noqa: E731
-    comp = lambda: composite_front(stack)  # noqa: E731
+    comp = lambda: composite_front(stack, H)  # noqa: E731
     ev = [time_cuda(f, 200) for f in (comp, fused, fused, comp)]
     dev = [device_time(f, 200) for f in (comp, fused, fused, comp)]
     plain_ms, plain_n = device_time(
@@ -534,6 +562,189 @@ def check_relocalization(system, frames, poses, align, length):
     return launches
 
 
+def stereo_sequence(n):
+    """n rectified u8 pairs along euroc_pose (20 fps) on the JAX stereo
+    tests' scene (SmoothScene seed 22)."""
+    from ygz_tpu_torch.utils.synthetic import SmoothScene
+
+    scene = SmoothScene(seed=22, w=W, h=H, f=STEREO_F, tex_size=2000)
+    poses = [euroc_pose(i) for i in range(n)]
+    pairs = [tuple(np.clip(v, 0, 255).astype(np.uint8)
+                   for v in scene.render_pair(R, t, STEREO_BF / STEREO_F))
+             for R, t in poses]
+    return poses, pairs
+
+
+def rgbd_sequence(n):
+    """n u8 frames with their metric depth maps on the JAX RGB-D test's
+    scene (SmoothScene seed 13): the EuRoC path at two-thirds of its step
+    per frame, as a 30 fps camera moving as fast would see it."""
+    from ygz_tpu_torch.utils.synthetic import SmoothScene
+
+    scene = SmoothScene(seed=13, w=TUM_W, h=H, f=TUM_F, tex_size=2000)
+    poses = [euroc_pose(2.0 * i / 3.0) for i in range(n)]
+    return poses, [(scene.render_u8(R, t), scene.depth(R, t))
+                   for R, t in poses]
+
+
+def run_depth_path(sensor, frames, device):
+    """System.track_stereo ("stereo": (left, right) pairs, 20 fps) or
+    System.track_rgbd ("rgbd": (image, depth), 30 fps) over the frames
+    with the default TrackerConfig. Returns (system, states, depth points
+    seeded per keyframe, seconds)."""
+    from ygz_tpu_torch.geometry.camera import Camera
+    from ygz_tpu_torch.system import Sensor, System
+
+    if sensor == "stereo":
+        cam = Camera.make(STEREO_F, STEREO_F, W / 2.0 - 0.5, H / 2.0 - 0.5,
+                          W, H, bf=STEREO_BF)
+        system = System(cam, Sensor.STEREO, device=device)
+        track, dt = system.track_stereo, 0.05
+    else:
+        cam = Camera.make(TUM_F, TUM_F, TUM_W / 2.0 - 0.5, H / 2.0 - 0.5,
+                          TUM_W, H)
+        system = System(cam, Sensor.RGBD, device=device)
+        track, dt = system.track_rgbd, 1.0 / 30.0
+    tr = system.tracker
+    seeded = {}
+    seed = tr._create_depth_points
+
+    def counted(smap, kf, pyr):
+        seeded[kf] = seed(smap, kf, pyr)
+        return seeded[kf]
+
+    tr._create_depth_points = counted
+    states = []
+    t0 = time.perf_counter()
+    for i, (a, b) in enumerate(frames):
+        states.append(track(a, b, i * dt)[0])
+    return system, states, seeded, time.perf_counter() - t0
+
+
+def check_depth_result(sensor, system, states, seeded, poses):
+    """One-frame init, frames OK, metric ATE (6-DoF aligned without scale)
+    and span against the ground truth with the JAX tests' bounds, and the
+    depth sources: stereo observations that reach the BA problem (stereo),
+    depth-seeded points in every keyframe and >= 3 keyframes beyond KF 0
+    (RGB-D)."""
+    from ygz_tpu_torch.eval.ate import ate_rmse
+
+    frac_ok = states.count("OK") / len(states)
+    est, gt = [], []
+    for rec, (R, t) in zip(system.trajectory, poses):
+        if rec.state == "OK":
+            Rr, tr = system.tracker.recovered_pose(rec)
+            est.append(-Rr.T @ tr)
+            gt.append(-R.T @ t)
+    est, gt = np.array(est), np.array(gt)
+    if not np.isfinite(est).all():
+        raise RuntimeError(f"{sensor}: non-finite poses in the trajectory")
+    rmse, _ = ate_rmse(est, gt, with_scale=False)
+    length = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    span = float(np.linalg.norm(est[-1] - est[0])
+                 / np.linalg.norm(gt[-1] - gt[0]))
+    smap = system.map
+    kfs = np.nonzero(smap.kf_valid[: smap.n_kf])[0].tolist()
+    o_ur = smap.observations(kfs, smap.points_in_kfs(kfs))[4]
+    n_stereo = int((o_ur >= 0).sum())
+    unseeded = [k for k in range(smap.n_kf) if not seeded.get(k)]
+    ate_bound, span_bound = (0.033, 0.10) if sensor == "stereo" \
+        else (0.04, 0.05)
+    print(f"{sensor}: frame 0 {states[0]}; frames OK {states.count('OK')}/"
+          f"{len(states)} ({frac_ok:.3f}); last frame {states[-1]}; "
+          f"keyframes {smap.n_kf} ({len(kfs)} alive); map points "
+          f"{int(smap.pt_valid[: smap.n_pt].sum())}; depth points seeded per "
+          f"keyframe {[seeded.get(k, 0) for k in range(smap.n_kf)]}; stereo "
+          f"(u, v, u_r) observations in the BA problem {n_stereo} of "
+          f"{len(o_ur)}")
+    print(f"{sensor}: metric ATE RMSE (6-DoF aligned, no scale, {len(est)} "
+          f"poses) {rmse:.5f} over a {length:.3f} path "
+          f"({100 * rmse / length:.3f}%, bound {100 * ate_bound:.1f}%); span "
+          f"ratio {span:.5f} (bound 1 +- {span_bound})")
+    if states[0] != "OK" or frac_ok < 0.9 or states[-1] != "OK":
+        raise RuntimeError(f"{sensor} tracking: frame 0 {states[0]}, "
+                           f"{frac_ok:.3f} OK, last {states[-1]}")
+    if not rmse < ate_bound * length or abs(span - 1.0) > span_bound:
+        raise RuntimeError(f"{sensor}: metric ATE {rmse:.5f} or span "
+                           f"{span:.5f} out of bounds")
+    if sensor == "stereo" and n_stereo <= 200:
+        raise RuntimeError(f"stereo: {n_stereo} stereo observations in BA")
+    if sensor == "rgbd" and (smap.n_kf - 1 < 3 or unseeded):
+        raise RuntimeError(f"rgbd: {smap.n_kf - 1} keyframes beyond KF 0, "
+                           f"keyframes {unseeded} without depth points")
+
+
+def check_stereo_match(system, pairs):
+    """The disparity search of the newest keyframe's features (512 tracked
+    + 512 new) against its frame's right image, card vs CPU: disparities
+    within 1e-3 px where both accept, ok >= 99% equal. Returns the
+    timings."""
+    import torch
+    from ygz_tpu_torch.ops.image import level0
+    from ygz_tpu_torch.ops.stereo import stereo_match_features
+
+    smap = system.map
+    kf = max(k for k in range(smap.n_kf)
+             if smap.kf_valid[k] and smap.kf_pyr[k] is not None)
+    right = pairs[int(smap.kf_frame_id[kf])][1]
+    args = {dev: (level0(smap.kf_pyr[kf], H).to(dev),
+                  torch.as_tensor(right, dtype=torch.float32, device=dev),
+                  torch.as_tensor(smap.kf_feat_uv[kf], device=dev),
+                  torch.as_tensor(smap.kf_feat_valid[kf], device=dev))
+            for dev in ("cuda", "cpu")}
+    out, host_ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        stereo_match_features(*args[dev])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            res = stereo_match_features(*args[dev])
+            out[dev] = [a.cpu().numpy() for a in res]
+        host_ms[dev] = 1e3 * (time.perf_counter() - t0) / 5
+    (dg, og), (dc, oc) = out["cuda"], out["cpu"]
+    both = og & oc
+    gap = float(np.abs(dg - dc)[both].max()) if both.any() else 0.0
+    same = float((og == oc).mean())
+    fn = lambda: stereo_match_features(*args["cuda"])  # noqa: E731
+    dev_ms, n_kernels = device_time(fn, 20)
+    rec = {"n": len(dg), "valid": int(smap.kf_feat_valid[kf].sum()),
+           "ok_card": int(og.sum()), "ok_cpu": int(oc.sum()),
+           "max_disp_gap_px": gap, "ok_equal": same, "device_ms": dev_ms,
+           "kernels_per_call": n_kernels, "event_ms": time_cuda(fn, 20),
+           "host_ms": host_ms["cuda"], "cpu_ms": host_ms["cpu"]}
+    print(f"stereo_match_features on keyframe {kf} ({rec['n']} features, "
+          f"{rec['valid']} valid) card vs CPU: accepted {rec['ok_card']} / "
+          f"{rec['ok_cpu']}, ok {same:.4f} equal, disparities {gap:.2e} px "
+          f"apart where both accept; device {dev_ms:.4f} ms over "
+          f"{n_kernels:.0f} kernels per call, CUDA events "
+          f"{rec['event_ms']:.4f} ms, host {rec['host_ms']:.3f} ms per "
+          f"call with its readback (CPU {rec['cpu_ms']:.3f} ms)")
+    if gap > 1e-3 or same < 0.99 or rec["ok_card"] < 0.5 * rec["valid"]:
+        raise RuntimeError("stereo_match_features on the card disagrees "
+                           "with the CPU")
+    return rec
+
+
+def run_counted(fast, label, fn):
+    """Runs fn with every kernel's launch count set to 0 and the
+    extractor's calls counted; checks one fused launch per extraction and
+    no single-threshold launch. Returns (fn's result, fused launches)."""
+    import torch
+
+    fast.fast_score_map.launches = 0
+    fast.fast_corner_maps.launches = 0
+    with counted_extractions() as extractions:
+        out = fn()
+    torch.cuda.synchronize()
+    fused = fast.fast_corner_maps.launches
+    single = fast.fast_score_map.launches
+    print(f"{label}: {len(extractions)} extractions, fast_corners launches "
+          f"{fused}, single-threshold fast_score launches {single}")
+    if not extractions or fused != len(extractions) or single:
+        raise RuntimeError(f"{label} did not make exactly one fast_corners "
+                           f"launch per extraction")
+    return out, fused
+
+
 def check_ransac():
     """PnP (512 matches) and Sim3 (200 pairs) RANSAC, 30% outliers each,
     on the same hypotheses (drawn once on a CPU generator) on the card and
@@ -760,23 +971,12 @@ def main() -> int:
     score_rec = check_fast_kernel(frames[0])
     corners_rec = check_fast_corners(frames)
 
-    fast.fast_score_map.launches = 0
-    fast.fast_corner_maps.launches = 0
-    with counted_extractions() as extractions:
-        system, states, ladder, secs = run_main_path(frames[:N_FRAMES],
-                                                     "cuda")
-    torch.cuda.synchronize()
-    corners_rec["launches"] = fast.fast_corner_maps.launches
+    (system, states, ladder, secs), corners_rec["launches"] = run_counted(
+        fast, "main path", lambda: run_main_path(frames[:N_FRAMES], "cuda"))
     score_rec["launches"] = fast.fast_score_map.launches
     print(f"main path: {N_FRAMES} frames in {secs:.2f} s "
-          f"({1e3 * secs / N_FRAMES:.2f} ms/frame mean); {len(extractions)} "
-          f"extractions, fast_corners launches {corners_rec['launches']}, "
-          f"single-threshold fast_score launches {score_rec['launches']}")
-    if not extractions or corners_rec["launches"] != len(extractions) \
-            or score_rec["launches"]:
-        raise RuntimeError("the main path did not make exactly one "
-                           "fast_corners launch per extraction")
-    print(system.tracker.timer.report())
+          f"({1e3 * secs / N_FRAMES:.2f} ms/frame mean)")
+    print(f"main path ({smi}) {system.tracker.timer.report()}")
     align, length = check_result(system, states, ladder, poses[:N_FRAMES])
     check_step_vs_cpu(system, frames[N_FRAMES:])
     check_global_ba(system)
@@ -786,6 +986,35 @@ def main() -> int:
     score_rec["launches_relocalization"] = fast.fast_score_map.launches
     check_ransac()
     check_loop_correction()
+
+    t0 = time.perf_counter()
+    st_poses, pairs = stereo_sequence(N_STEREO_FRAMES)
+    rg_poses, rg_frames = rgbd_sequence(N_RGBD_FRAMES)
+    print(f"rendered {len(pairs)} stereo pairs {W}x{H} and {len(rg_frames)} "
+          f"RGB-D frames {TUM_W}x{H} in {time.perf_counter() - t0:.1f} s")
+    # the RGB-D path runs the fused kernel on the TUM camera's pyramid
+    # (480x640 .. 60x80): held bit for bit there too, outside the counted
+    # runs
+    corners_rec["max_abs_err"] = max(
+        corners_rec["max_abs_err"],
+        *(hold_fast_corners(rg_frames[i][0], f"RGB-D frame {i}")
+          for i in (0, N_RGBD_FRAMES // 2)))
+    for sensor, poses, seq in (("stereo", st_poses, pairs),
+                               ("rgbd", rg_poses, rg_frames)):
+        (dsys, dstates, seeded, secs), launches = run_counted(
+            fast, f"{sensor} path", lambda: run_depth_path(sensor, seq,
+                                                           "cuda"))
+        corners_rec[f"launches_{sensor}"] = launches
+        score_rec[f"launches_{sensor}"] = fast.fast_score_map.launches
+        print(f"{sensor} path: {len(seq)} frames in {secs:.2f} s "
+              f"({1e3 * secs / len(seq):.2f} ms/frame mean)")
+        print(f"{sensor} path ({smi}) {dsys.tracker.timer.report()}")
+        check_depth_result(sensor, dsys, dstates, seeded, poses)
+        if sensor == "stereo":
+            check_stereo_match(dsys, pairs)
+    # the first frame steps after RGB-D's one-frame init, card vs CPU
+    init_sys = run_depth_path("rgbd", rg_frames[:1], "cuda")[0]
+    check_step_vs_cpu(init_sys, [img for img, _ in rg_frames[1:6]])
 
     print(json.dumps({"kernels": [score_rec, corners_rec]}))
     print(json.dumps({"ok": True, "device": {

@@ -55,9 +55,10 @@ def test_fast_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         fast.fast_score_map(x.half(), 20.0)
 
 
-# stacked 4-level pyramids: EuRoC (480x752 .. 60x94), ragged (101x137 ..
-# 12x17) and one whose top level (5x6) is all 3-px frame
-PYRAMIDS = [(480, 752), (101, 137), (40, 52)]
+# stacked 4-level pyramids: EuRoC (480x752 .. 60x94), TUM RGB-D (480x640
+# .. 60x80), ragged (101x137 .. 12x17) and one whose top level (5x6) is all
+# 3-px frame
+PYRAMIDS = [(480, 752), (480, 640), (101, 137), (40, 52)]
 
 
 def _stacked(img, device):

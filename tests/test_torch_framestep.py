@@ -61,17 +61,18 @@ def sequence():
 
 def test_interop_and_packing_roundtrip(sequence):
     _, cache, carry = sequence
-    tc = interop.carry_from_numpy(*(np.asarray(a) for a in carry))
+    tc = interop.carry_from_numpy(*(np.asarray(a) for a in carry),
+                                  device="cpu")
     np.testing.assert_array_equal(np_(tc.pyr), np.asarray(carry.pyr))
     np.testing.assert_array_equal(np_(tc.pts), np.asarray(carry.pts))
     cj = jfs.unpack_cache(jnp.asarray(cache))
-    ct = tfs.unpack_cache(interop.cache_from_numpy(cache))
+    ct = tfs.unpack_cache(interop.cache_from_numpy(cache, device="cpu"))
     for a, b in zip(ct, cj):
         np.testing.assert_array_equal(np_(a), np.asarray(b))
     assert tfs.CACHE_COLS == jfs.CACHE_COLS == 419
     assert tfs.N_SCALARS == jfs.N_SCALARS == 29
     with pytest.raises(ValueError):
-        interop.cache_from_numpy(cache[:, :100])
+        interop.cache_from_numpy(cache[:, :100], device="cpu")
     np.testing.assert_array_equal(tfs.pack_pred_np(), jfs.pack_pred_np())
 
 
@@ -79,9 +80,10 @@ def test_frame_step_matches_jax_over_frames(sequence):
     frames, cache, carry = sequence
     intr = (F, F, W / 2.0 - 0.5, H / 2.0 - 0.5)
     cj = carry
-    ct = interop.carry_from_numpy(*(np.asarray(a) for a in carry))
+    ct = interop.carry_from_numpy(*(np.asarray(a) for a in carry),
+                                  device="cpu")
     cache_j = jnp.asarray(cache)
-    cache_t = interop.cache_from_numpy(cache)
+    cache_t = interop.cache_from_numpy(cache, device="cpu")
     pred = jfs.pack_pred_np()
     for i in range(1, N_FRAMES + 1):
         img = frames[i].astype(np.uint8)

@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 
 from ygz_tpu_torch.eval.ate import ate_rmse
-from ygz_tpu_torch.frontend.tracker import TrackerConfig
+from ygz_tpu_torch.frontend.tracker import (RgbdTracker, StereoTracker,
+                                            TrackerConfig)
 from ygz_tpu_torch.geometry.camera import Camera
 from ygz_tpu_torch.system import Sensor, System
 from ygz_tpu_torch.utils.synthetic import SmoothScene
@@ -61,9 +62,18 @@ def test_port_rejects_unported_settings():
                 TrackerConfig(async_mapping=True)):
         with pytest.raises(NotImplementedError):
             System(cam, Sensor.MONOCULAR, config=cfg, device="cpu")
-    for sensor in (Sensor.STEREO, Sensor.RGBD, Sensor.MONO_VI):
-        with pytest.raises(NotImplementedError):
-            System(cam, sensor, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        System(cam, Sensor.MONO_VI, device="cpu")
+    # stereo and RGB-D are ported; stereo needs the rig's Camera.bf (its
+    # depths are bf / disparity), RGB-D without it gets the JAX package's
+    # virtual 0.08 m baseline
+    with pytest.raises(ValueError, match="Camera.bf"):
+        System(cam, Sensor.STEREO, device="cpu")
+    stereo_cam = cam._replace(bf=0.11 * cam.fx)
+    stereo = System(stereo_cam, Sensor.STEREO, device="cpu").tracker
+    assert isinstance(stereo, StereoTracker) and stereo.cam == stereo_cam
+    rgbd = System(cam, Sensor.RGBD, device="cpu").tracker
+    assert type(rgbd) is RgbdTracker and rgbd.cam.bf == 0.08 * cam.fx
     # the JAX package's default configuration is ported
     cfg = System(cam, Sensor.MONOCULAR, device="cpu").tracker.cfg
     assert cfg.enable_loop_closing and cfg.enable_relocalization

@@ -1,7 +1,9 @@
-"""Monocular tracking front-end: host state machine over batched device steps.
+"""Tracking front-end: host state machine over batched device steps.
 
-Port of ``ygz_tpu/frontend/tracker.py::MonoTracker`` for the monocular VO
-main path: initialize (ORB + two-view) -> per frame the fused step
+Port of ``ygz_tpu/frontend/tracker.py``: ``MonoTracker`` (the monocular VO
+main path), and ``RgbdTracker`` and ``StereoTracker``, which initialize
+from one frame and seed metric map points from depth at every keyframe.
+MonoTracker: initialize (ORB + two-view) -> per frame the fused step
 (sparse alignment seeded by the last frame, direct local-map tracking with a
 point cache, pose GN) -> keyframe decision -> synchronous mapping tail
 (triangulation, fusion, local BA, culling, patch refresh). When direct
@@ -11,9 +13,10 @@ tracker relocalizes through BoW candidates and EPnP RANSAC. Each keyframe
 is indexed for place recognition and tested for a loop; an accepted loop is
 corrected through the Sim3 essential graph, then a global BA.
 
-Not ported yet (ROADMAP queue A): the async mapping worker,
+Not ported yet (ROADMAP queue A): the async mapping worker (and with it
+the stereo/RGB-D close-point term of the keyframe decision),
 ``track_batch``, the octree keypoint mode, multi-device BA, and the
-stereo/RGB-D/VI subclasses.
+mono-VI subclass.
 """
 from __future__ import annotations
 
@@ -35,10 +38,22 @@ from ..backend.pnp import pnp_ransac
 from ..geometry import camera as cam_mod
 from ..geometry.twoview import two_view_reconstruct
 from ..ops import matching
+from ..ops.image import level0
+from ..ops.stereo import stereo_match_features
 from ..utils.profiling import StageTimer
 from .extractor import OrbExtractor
 from .framestep import (build_pyramid_stacked, frame_step, make_carry,
                         pack_cache_np, pack_pred_np, unpack_out)
+
+
+def _depth_at(depth, uv):
+    """Depth map values at the pixels nearest to uv [N, 2], clamped into
+    the map. np.round rounds half to even, as the JAX package's lookups
+    do, so both seed the same pixels."""
+    depth = np.asarray(depth)
+    xi = np.clip(np.round(uv[:, 0]).astype(int), 0, depth.shape[1] - 1)
+    yi = np.clip(np.round(uv[:, 1]).astype(int), 0, depth.shape[0] - 1)
+    return depth[yi, xi]
 
 
 class State(enum.Enum):
@@ -66,6 +81,7 @@ class TrackerConfig:
     kf_ratio: float = 0.75        # inliers < 0.75 * ref-KF tracked
     kf_min_gap: int = 3
     kf_max_gap: int = 30
+    th_depth: float = 35.0        # close/far split in baseline units
     ba_window: int = 6
     enable_loop_closing: bool = True
     enable_relocalization: bool = True
@@ -141,6 +157,7 @@ class MonoTracker:
         self._carry = None    # framestep.FrameCarry on the device
         self._no_pred = torch.as_tensor(pack_pred_np(), device=self.device)
         self.debug = {}
+        self._cur_depth = None    # this frame's depth map (RGB-D)
         self.timer = StageTimer()
         self._last_kf = -1
         self._last_kf_frame = -1
@@ -192,10 +209,12 @@ class MonoTracker:
         return R.cpu().numpy(), t.cpu().numpy()
 
     # ------------------------------------------------------------------ entry
-    def track(self, img, ts: float):
+    def track(self, img, ts: float, depth=None):
         """Process one grayscale frame. Returns (state, R, t) with (R, t)
-        the world->camera pose (identity until initialized)."""
+        the world->camera pose (identity until initialized). `depth`: an
+        optional [H, W] metric depth map aligned with `img` (RGB-D)."""
         self.frame_id += 1
+        self._cur_depth = depth
         if self.state == State.NOT_INITIALIZED:
             with self.timer.stage("pyramid"):
                 pyr = self._build_pyramid(img)
@@ -766,7 +785,7 @@ class MonoTracker:
             "desc": np.concatenate([desc.cpu().numpy(), nf["desc"]]),
             "valid": np.concatenate([val_pad, nf["valid"]]),
         }
-        feats["ur"] = np.full(len(feats["uv"]), -1.0, np.float32)
+        feats["ur"] = self._feature_ur(feats, pyr)
         return feats
 
     def _create_keyframe(self, pyr, ts, R, t, tracked_ids, tracked_uv,
@@ -786,6 +805,8 @@ class MonoTracker:
         kf = smap.add_keyframe(R, t, feats, ts=ts, frame_id=self.frame_id,
                                pyramid=pyr)
         smap.bind(kf, np.arange(m), tracked_ids[:m])
+        if self._depth_source_available():
+            self._create_depth_points(smap, kf, pyr)
         self._last_kf = kf
         self._last_kf_frame = self.frame_id
         self._kf_ref_tracked = int((smap.kf_feat_pt[kf] >= 0).sum())
@@ -871,3 +892,168 @@ class MonoTracker:
         self.mapper.refresh_patches(smap, kf, pyr, smap.kf_feat_pt[kf, slots],
                                     slots)
         self._vel = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+
+    # ------------------------------------------------------------ depth seeds
+    def _feature_ur(self, f, pyr):
+        """Per-feature right-image u coordinate u_r (the reference's
+        mvuRight); -1 = monocular. The RGB-D (depth lookup) and stereo
+        (disparity search) trackers override it; these feed the 3-row
+        (u, v, u_r) BA edges."""
+        return np.full(len(f["uv"]), -1.0, np.float32)
+
+    def _depth_source_available(self) -> bool:
+        return self._cur_depth is not None
+
+    def _feature_depths(self, smap, kf, slots):
+        """Per-slot metric depths for depth-seeded point creation: a lookup
+        in the frame's depth map (the stereo tracker overrides it)."""
+        return _depth_at(self._cur_depth, smap.kf_feat_uv[kf, slots])
+
+    def _th_depth(self) -> float:
+        """Metric close/far threshold: bf / fx * ThDepth (reference
+        Tracking.cc mThDepth); a wide absolute default when bf is unset."""
+        if self.cam.bf > 0:
+            return self.cam.bf / self.cam.fx * self.cfg.th_depth
+        return 40.0
+
+    def _create_depth_points(self, smap, kf, pyr, min_points: int = 100):
+        """Map points for the unbound features of kf with a valid depth.
+        Close points (z < ThDepth) are always inserted, far ones nearest
+        first until `min_points` in all (reference CreateNewKeyFrame's
+        close/far policy). Returns the points created."""
+        unbound = smap.kf_feat_valid[kf] & (smap.kf_feat_pt[kf] < 0)
+        slots = np.nonzero(unbound)[0]
+        if len(slots) == 0:
+            return 0
+        d = self._feature_depths(smap, kf, slots)
+        uv = smap.kf_feat_uv[kf, slots]
+        lvl = smap.kf_feat_level[kf, slots]
+        ok = (d > 0.1) & np.isfinite(d) & self.mapper.patch_in_bounds(uv, lvl)
+        slots, uv, d = slots[ok], uv[ok], d[ok]
+        if len(slots) == 0:
+            return 0
+        order = np.argsort(d)                   # nearest first
+        keep = (d[order] < self._th_depth()) | (np.arange(len(order))
+                                                < min_points)
+        sel = order[keep]
+        slots, uv, d = slots[sel], uv[sel], d[sel]
+        xn = np.stack([(uv[:, 0] - self.cam.cx) / self.cam.fx,
+                       (uv[:, 1] - self.cam.cy) / self.cam.fy], -1)
+        Xc = np.concatenate([xn * d[:, None], d[:, None]], -1)
+        Xw = (Xc - smap.kf_t[kf]) @ smap.kf_R[kf]     # R^T (Xc - t)
+        ids = smap.alloc_points(len(slots))
+        smap.pt_xyz[ids] = Xw.astype(np.float32)
+        smap.pt_valid[ids] = True
+        smap.pt_first_kf[ids] = kf
+        smap.pt_desc[ids] = smap.kf_feat_desc[kf, slots]
+        smap.bind(kf, slots, ids)
+        self.mapper.refresh_patches(smap, kf, pyr, ids, slots)
+        return len(slots)
+
+
+class RgbdTracker(MonoTracker):
+    """RGB-D tracking: instant metric initialization from the depth map
+    (reference Tracking::StereoInitialization), then the same direct
+    pipeline; new map points are seeded from depth at every keyframe, with
+    triangulation as a complement for far features."""
+
+    # Without Camera.bf the depth would seed points but give no 3-row BA
+    # edges, and local BA's scale would drift (pinned only by the fixed
+    # ring): a virtual baseline turns every depth into a pseudo-stereo u_r
+    VIRTUAL_BASELINE_M = 0.08
+
+    def __init__(self, cam: cam_mod.Camera, cfg: TrackerConfig = None,
+                 device="cuda"):
+        if cam.bf <= 0:
+            cam = cam._replace(bf=self.VIRTUAL_BASELINE_M * cam.fx)
+        super().__init__(cam, cfg, device=device)
+
+    def _try_initialize(self, pyr, ts) -> bool:
+        if not self._depth_source_available():
+            return False
+        smap = self.map
+        f = self._feats_to_dict(self.extractor(pyr))
+        if int(f["valid"].sum()) < 100:
+            return False
+        f["ur"] = self._feature_ur(f, pyr)
+        kf0 = smap.add_keyframe(np.eye(3, dtype=np.float32),
+                                np.zeros(3, np.float32), f, ts=ts,
+                                frame_id=self.frame_id, pyramid=pyr)
+        n = self._create_depth_points(smap, kf0, pyr)
+        if n < 50:
+            return False
+        if self.cfg.enable_loop_closing or self.cfg.enable_relocalization:
+            self.bow_index = BowIndex(
+                self._build_vocabulary(f["desc"][f["valid"]]),
+                max_kf=smap.max_kf, device=self.device)
+            self.loop_closer = LoopCloser(self.bow_index, self.cam,
+                                          device=self.device)
+            self._index_keyframe(kf0)
+        self.state = State.OK
+        self._last_kf = kf0
+        self._last_kf_frame = self.frame_id
+        self._kf_ref_tracked = n
+        self._rebuild_cache()
+        self._set_last_frame(pyr, smap.kf_R[kf0], smap.kf_t[kf0],
+                             cache_uv=None)
+        self._vel = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        return True
+
+    def _feature_ur(self, f, pyr):
+        """Pseudo-stereo from the depth map: u_r = u - bf / z where z > 0.1
+        (reference Frame::ComputeStereoFromRGBD)."""
+        if self._cur_depth is None:
+            return super()._feature_ur(f, pyr)
+        uv = np.asarray(f["uv"])
+        z = _depth_at(self._cur_depth, uv)
+        ok = np.asarray(f["valid"]) & (z > 0.1) & np.isfinite(z)
+        ur = uv[:, 0] - self.cam.bf / np.maximum(z, 1e-6)
+        return np.where(ok, ur, -1.0).astype(np.float32)
+
+
+class StereoTracker(RgbdTracker):
+    """Stereo tracking on rectified, undistorted pairs: feature depths come
+    from the batched disparity search (ops/stereo.py; the reference's
+    Frame::ComputeStereoMatches). Initialization and point seeding reuse
+    the depth-seeded path, with the metric scale from the baseline."""
+
+    _cur_right = None     # this frame's right image
+
+    def __init__(self, cam: cam_mod.Camera, cfg: TrackerConfig = None,
+                 device="cuda"):
+        # the depths are bf / disparity: a rig without its baseline would
+        # get RgbdTracker's virtual one and a wrong metric scale
+        if cam.bf <= 0:
+            raise ValueError("StereoTracker needs Camera.bf (baseline * fx) "
+                             "of the rectified pair")
+        super().__init__(cam, cfg, device=device)
+
+    def track(self, img, ts: float, depth=None, right=None):
+        self._cur_right = right
+        return super().track(img, ts, depth=depth)
+
+    def _depth_source_available(self) -> bool:
+        return self._cur_right is not None
+
+    def _feature_ur(self, f, pyr):
+        """Disparity search of every feature against this frame's right
+        image, on the tracker's device; u_r = u - disparity."""
+        if self._cur_right is None:
+            return MonoTracker._feature_ur(self, f, pyr)
+        with self.timer.stage("stereo_match"):
+            disp, ok = stereo_match_features(
+                level0(pyr, self.cam.height),
+                self._t(np.asarray(self._cur_right, np.float32)),
+                self._t(f["uv"]), self._t(f["valid"]))
+            disp = disp.cpu().numpy()
+            ok = ok.cpu().numpy() & (disp > 0.1)
+        ur = np.asarray(f["uv"])[:, 0] - disp
+        return np.where(ok, ur, -1.0).astype(np.float32)
+
+    def _feature_depths(self, smap, kf, slots):
+        """Depths from the stored stereo u_r: d = bf / (u - u_r)."""
+        ur = smap.kf_feat_ur[kf, slots]
+        disp = smap.kf_feat_uv[kf, slots, 0] - ur
+        d = np.where((ur >= 0) & (disp > 0.1),
+                     self.cam.bf / np.maximum(disp, 1e-3), -1.0)
+        return d.astype(np.float32)

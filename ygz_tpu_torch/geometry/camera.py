@@ -97,7 +97,7 @@ def undistort_points(cam: Camera, uv):
                         cam.fy * xn[..., 1] + cam.cy], -1)
 
 
-def undistort_remap_grid(cam: Camera, device="cpu"):
+def undistort_remap_grid(cam: Camera, device="cuda"):
     """(map_u, map_v) [H, W] source locations that produce the undistorted
     image (cv::initUndistortRectifyMap analog)."""
     v, u = torch.meshgrid(

@@ -19,7 +19,7 @@ def _to(a, device):
     return torch.as_tensor(np.array(a, np.float32), device=device)
 
 
-def carry_from_numpy(pyr, state, pts, device="cpu") -> FrameCarry:
+def carry_from_numpy(pyr, state, pts, device="cuda") -> FrameCarry:
     """FrameCarry from its three arrays: pyr [SH, W] stacked pyramid,
     state [24], pts [cap, 6] (e.g. ``jax FrameCarry`` fields through
     ``np.asarray``)."""
@@ -32,7 +32,7 @@ def carry_from_numpy(pyr, state, pts, device="cpu") -> FrameCarry:
                       pts=_to(pts, device))
 
 
-def cache_from_numpy(cache, device="cpu"):
+def cache_from_numpy(cache, device="cuda"):
     """The packed [cap, CACHE_COLS] direct-tracking cache."""
     cache = np.asarray(cache)
     if cache.ndim != 2 or cache.shape[1] != CACHE_COLS:

@@ -155,6 +155,13 @@ def as_levels(pyr, n_levels: int, scale_factor: float = 2.0,
     return unstack_pyramid(pyr, n_levels, scale_factor, height)
 
 
+def level0(pyr, height: int):
+    """The level-0 image of either pyramid representation."""
+    if isinstance(pyr, (tuple, list)):
+        return pyr[0]
+    return pyr[:height]
+
+
 def extract_patches(img, uv, half: int):
     """Square (2*half+1)^2 patches at integer-rounded uv [N, 2], centres
     clamped so patches stay in-image. Returns [N, 2h+1, 2h+1]."""

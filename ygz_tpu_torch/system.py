@@ -1,9 +1,10 @@
 """System facade: the public entry point of the PyTorch port.
 
-Port of ``ygz_tpu/system.py`` for ``Sensor.MONOCULAR``: construction,
-``track_monocular``, the TUM and KITTI trajectory savers, ``trajectory``,
+Port of ``ygz_tpu/system.py`` for ``Sensor.MONOCULAR``, ``Sensor.STEREO``
+and ``Sensor.RGBD``: construction, ``track_monocular``, ``track_stereo``,
+``track_rgbd``, the TUM and KITTI trajectory savers, ``trajectory``,
 ``map``, ``reset``, map save/load (a loaded map is entered through
-relocalization) and the localization-only mode. The other sensors and
+relocalization) and the localization-only mode. ``Sensor.MONO_VI`` and
 batched tracking are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
@@ -17,7 +18,8 @@ from .backend.bow import BowIndex, Vocabulary
 from .backend.loopclosing import LoopCloser
 from .backend.mapstate import SlamMap
 from .geometry import camera as cam_mod
-from .frontend.tracker import MonoTracker, State, TrackerConfig
+from .frontend.tracker import (MonoTracker, RgbdTracker, State,
+                               StereoTracker, TrackerConfig)
 
 
 class Sensor(enum.Enum):
@@ -65,7 +67,8 @@ class System:
 
     Args:
       cam: geometry.camera.Camera.
-      sensor: Sensor mode (MONOCULAR only, for now).
+      sensor: Sensor mode (MONOCULAR, STEREO or RGBD; STEREO needs
+        Camera.bf = baseline * fx and a rectified, undistorted pair).
       config: TrackerConfig overrides.
       device: where the tensors live ("cuda" by default; "cpu" runs the
         plain PyTorch versions of the kernels).
@@ -73,22 +76,40 @@ class System:
 
     def __init__(self, cam: cam_mod.Camera, sensor: Sensor = Sensor.MONOCULAR,
                  config: Optional[TrackerConfig] = None, device="cuda"):
-        if sensor != Sensor.MONOCULAR:
+        trackers = {Sensor.MONOCULAR: MonoTracker, Sensor.RGBD: RgbdTracker,
+                    Sensor.STEREO: StereoTracker}
+        if sensor not in trackers:
             raise NotImplementedError(
-                f"{sensor} is not ported yet: ROADMAP queue A, items 17 "
-                f"(stereo and RGB-D) and 18 (mono-VI)")
+                f"{sensor} is not ported yet: ROADMAP queue A, item 18 "
+                f"(mono-VI)")
         self.cam = cam
         self.sensor = sensor
-        self.tracker = MonoTracker(cam, config, device=device)
+        self.tracker = trackers[sensor](cam, config, device=device)
 
-    def track_monocular(self, img, timestamp: float):
-        """Process one grayscale [H, W] frame (uint8 or float32 numpy).
-        Returns (state_name, T_cw [4, 4]) — identity until initialized."""
-        state, R, t = self.tracker.track(img, timestamp)
+    @staticmethod
+    def _result(state, R, t):
         T = np.eye(4, dtype=np.float32)
         T[:3, :3] = R
         T[:3, 3] = t
         return state.name, T
+
+    def track_monocular(self, img, timestamp: float):
+        """Process one grayscale [H, W] frame (uint8 or float32 numpy).
+        Returns (state_name, T_cw [4, 4]) — identity until initialized."""
+        return self._result(*self.tracker.track(img, timestamp))
+
+    def track_stereo(self, img_left, img_right, timestamp: float):
+        """Stereo entry point (reference System::TrackStereo): a rectified,
+        undistorted [H, W] pair; Camera.bf must be set. Returns what
+        track_monocular returns."""
+        return self._result(*self.tracker.track(img_left, timestamp,
+                                                right=img_right))
+
+    def track_rgbd(self, img, depth, timestamp: float):
+        """RGB-D entry point (reference System::TrackRGBD): `depth` is a
+        metric [H, W] depth map aligned with `img`. Returns what
+        track_monocular returns."""
+        return self._result(*self.tracker.track(img, timestamp, depth=depth))
 
     def save_trajectory_tum(self, path: str):
         """TUM format (ts tx ty tz qx qy qz qw of the camera in the world)

@@ -115,6 +115,24 @@ class PlaneScene:
         """The view as a camera's u8 frame [h, w]."""
         return np.clip(self.render(R, t), 0, 255).astype(np.uint8)
 
+    def render_pair(self, R, t, baseline):
+        """A rectified stereo pair [h, w] f32: the left view at (R, t) and
+        the right camera `baseline` along the left camera's x axis, at
+        t - [baseline, 0, 0]."""
+        t = np.asarray(t, np.float32)
+        right_t = t - np.array([baseline, 0.0, 0.0], np.float32)
+        return self.render(R, t), self.render(R, right_t)
+
+    def depth(self, R, t):
+        """Per-pixel metric depth [h, w] f32 of the view from (R, t): the
+        camera-frame z of each pixel's ray-surface intersection."""
+        R = np.asarray(R, np.float32)
+        t = np.asarray(t, np.float32)
+        o_w, d_w = self._rays(R, t)
+        lam = self._intersect(o_w, d_w)
+        Xw = o_w[None, None, :] + lam[..., None] * d_w
+        return (Xw @ R.T + t)[..., 2].astype(np.float32)
+
     def project(self, R, t, Xw):
         """World points -> pixels for pose (R,t). Returns uv [N,2], z [N]."""
         Xc = Xw @ np.asarray(R).T + np.asarray(t)
