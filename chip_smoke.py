@@ -28,22 +28,33 @@ Phases (any failure raises and the script exits non-zero):
      sees the first one's landmarks as drifted duplicates; compute_sim3 must
      recover the drift and correct() must close the seam and fuse them, the
      same on the card and on the CPU;
-  9. stereo: System.track_stereo over 80 rectified pairs at the EuRoC stereo
+  9. stereo: System.track_stereo over 40 rectified pairs at the EuRoC stereo
      rig's geometry (752x480, f=435.2, bf=47.906), 20 fps; one-frame init,
      frames OK, metric ATE (6-DoF, no scale) and span, stereo observations
      in the BA problem, one fused FAST launch per extraction; then the
      disparity search of one keyframe's 1024 features, card vs CPU;
   10. RGB-D: the fused FAST front held bit-exact on the TUM camera's
-     640x480 pyramid (frames 0 and 46); then System.track_rgbd over 92
+     640x480 pyramid (frames 0 and 23); then System.track_rgbd over 46
      frames with depth maps at that camera's geometry (f=517.3, the virtual
      baseline), 30 fps; the same checks, depth-seeded points in every
      keyframe, and the first frame steps after the one-frame init, card vs
-     CPU.
+     CPU;
+  11. mono-VI: System.track_mono_vi over 260 frames of the EuRoC cam0
+     geometry along the JAX VI tests' trajectory (0.6 m/s, 20 fps) with its
+     exact 200 Hz IMU and the default settings; two blank-frame outages (12
+     frames with a corrupted accelerometer, then 2 s); VINS init, metric
+     span, gravity, the recovery gate after dead-reckoning (and its
+     re-anchor branch), the escalation past DR_MAX_S, recovery;
+     then one pair optimization, one NavState window BA and the VINS
+     initialization recorded from the run, card vs CPU.
 The last line is {"ok": true, "device": {...}}. Needs CUDA; imports nothing
-of JAX.
+of JAX. `python3 chip_smoke.py --paths-only` builds the kernel and times
+only the monocular, stereo and RGB-D paths (for comparing two trees in one
+call).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -78,9 +89,17 @@ ARC_OPS, TH_OPS, MERGE_OPS, NMS_OPS = 16 + 8 + 16 + 59, 3, 3, 7
 # undistorted views), each centred on the synthetic scene
 STEREO_F, STEREO_BF = 435.2046959714599, 47.90639384423901
 TUM_W, TUM_F = 640, 517.306408
-# 92 > 3 * kf_max_gap: RGB-D makes >= 3 keyframes beyond KF 0 whatever
-# its inlier counts
-N_STEREO_FRAMES, N_RGBD_FRAMES = 80, 92
+# cut from 80 and 92 to keep the whole smoke near half its time limit
+# with the mono-VI phase; 46 > kf_max_gap: RGB-D makes >= 1 keyframe
+# beyond KF 0 whatever its inlier counts
+N_STEREO_FRAMES, N_RGBD_FRAMES = 40, 46
+# mono-VI: the JAX VI tests' trajectory (ygz_tpu_torch/utils/synthetic.py
+# pose_fn) at 20 fps. VINS init needs its 5 s chain (~frame 102) and may be
+# rejected at a few keyframes, so the first outage starts at 150: 12 blank
+# frames with the accelerometer corrupted by N(0, 4 m/s^2) from seed 7;
+# the second is 40 blank frames (2 s, twice DR_MAX_S)
+N_VI_FRAMES, VI_FPS = 260, 20.0
+VI_OUT1, VI_OUT2 = (150, 162), (190, 230)
 
 
 def euroc_pose(i):
@@ -322,14 +341,16 @@ def check_fast_corners(frames):
 @contextlib.contextmanager
 def counted_extractions():
     """Counts OrbExtractor calls (keyframe extraction included) while the
-    block runs: one list entry per call."""
+    block runs: one list entry per call, the name of the calling function
+    (the bootstrap, keyframe extraction, the fallback ladder,
+    relocalization)."""
     from ygz_tpu_torch.frontend.extractor import OrbExtractor
 
     calls = []
     real = OrbExtractor.__call__
 
     def counted(self, *args, **kw):
-        calls.append(1)
+        calls.append(sys._getframe(1).f_code.co_name)
         return real(self, *args, **kw)
 
     OrbExtractor.__call__ = counted
@@ -625,8 +646,8 @@ def check_depth_result(sensor, system, states, seeded, poses):
     """One-frame init, frames OK, metric ATE (6-DoF aligned without scale)
     and span against the ground truth with the JAX tests' bounds, and the
     depth sources: stereo observations that reach the BA problem (stereo),
-    depth-seeded points in every keyframe and >= 3 keyframes beyond KF 0
-    (RGB-D)."""
+    depth-seeded points in every keyframe and the keyframes beyond KF 0
+    that kf_max_gap forces (RGB-D)."""
     from ygz_tpu_torch.eval.ate import ate_rmse
 
     frac_ok = states.count("OK") / len(states)
@@ -669,7 +690,8 @@ def check_depth_result(sensor, system, states, seeded, poses):
                            f"{span:.5f} out of bounds")
     if sensor == "stereo" and n_stereo <= 200:
         raise RuntimeError(f"stereo: {n_stereo} stereo observations in BA")
-    if sensor == "rgbd" and (smap.n_kf - 1 < 3 or unseeded):
+    forced = (len(states) - 1) // system.tracker.cfg.kf_max_gap
+    if sensor == "rgbd" and (smap.n_kf - 1 < forced or unseeded):
         raise RuntimeError(f"rgbd: {smap.n_kf - 1} keyframes beyond KF 0, "
                            f"keyframes {unseeded} without depth points")
 
@@ -724,6 +746,298 @@ def check_stereo_match(system, pairs):
     return rec
 
 
+def vi_sequence():
+    """Frames and per-frame IMU of the mono-VI run: blank (128) frames in
+    both outages, the first one's accelerometer corrupted."""
+    from ygz_tpu_torch.utils.synthetic import SmoothScene, pose_fn, synth_imu
+
+    scene = SmoothScene(seed=11, w=W, h=H, f=F, tex_size=3000)
+    rng = np.random.default_rng(7)
+    blank = np.full((H, W), 128, np.uint8)
+    poses, frames, imus = [], [], []
+    for i in range(N_VI_FRAMES):
+        t = i / VI_FPS
+        R, tt = pose_fn(t)
+        poses.append((R, tt))
+        dark = VI_OUT1[0] <= i < VI_OUT1[1] or VI_OUT2[0] <= i < VI_OUT2[1]
+        frames.append(blank if dark else scene.render_u8(R, tt))
+        imu = synth_imu((i - 1) / VI_FPS, t) if i > 0 else []
+        if VI_OUT1[0] <= i < VI_OUT1[1]:
+            imu = [(ts, om, ac + rng.normal(0, 4.0, 3).astype(np.float32))
+                   for ts, om, ac in imu]
+        imus.append(imu)
+    return poses, frames, imus
+
+
+def _map(x, fn, np_fn=None):
+    """fn applied to every tensor (np_fn, where given, to every numpy
+    array) of a nest of tuples, lists and dicts."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, np.ndarray) and np_fn is not None:
+        return np_fn(x)
+    if isinstance(x, dict):
+        return {k: _map(v, fn, np_fn) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_map(v, fn, np_fn) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map(v, fn, np_fn) for v in x)
+    return x
+
+
+class Recorder:
+    """Wraps a function of the VI tracker's module and keeps host copies of
+    its arguments at the calls `keep` accepts (only the latest with
+    last=True), to replay them on the card and on the CPU."""
+
+    def __init__(self, module, name, keep, last=False):
+        self.module, self.name, self.keep = module, name, keep
+        self.last = last
+        self.real = getattr(module, name)
+        self.calls = []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        if self.keep(self, args, kw):
+            # copies: the map's pose arrays are views the BA rewrites
+            call = _map((args, kw), lambda t: t.detach().cpu().clone(),
+                        np.copy)
+            self.calls = [call] if self.last else self.calls + [call]
+        return self.real(*args, **kw)
+
+    def restore(self):
+        setattr(self.module, self.name, self.real)
+
+
+def run_vi_path(frames, imus, device, record=False):
+    """System.track_mono_vi over the frames with the default settings.
+    Returns (system, states, per-frame dead-reckoning / VINS debug, first
+    VINS-ready frame, seconds, recorders)."""
+    from ygz_tpu_torch.frontend import vi_tracker
+    from ygz_tpu_torch.system import Sensor, System
+
+    system = System(euroc_camera(), Sensor.MONO_VI, device=device)
+    tr = system.tracker
+    rec = {}
+    if record:
+        # the last pair optimization before the first outage, the first
+        # NavState window BA at the full window, the accepted VINS init
+        # (with the chain windows its preintegrations came from)
+        rec = {"pair": Recorder(vi_tracker, "vio_pose_optimization_pair",
+                                lambda r, a, k: tr.frame_id < VI_OUT1[0],
+                                last=True),
+               "ba": Recorder(vi_tracker, "vio_window_ba",
+                              lambda r, a, k: not r.calls
+                              and k["n_win"] == tr.W_CAP),
+               "vins": Recorder(vi_tracker, "vins_initialize",
+                                lambda r, a, k: True)}
+        real_init = tr._try_vins_init
+
+        def try_init():
+            windows = [tr._kf_imu[k] for k in tr._kf_order[1:]]
+            n = len(rec["vins"].calls)
+            real_init()
+            if len(rec["vins"].calls) > n:
+                rec["vins"].calls[-1] += (windows,)
+        tr._try_vins_init = try_init
+    states, debug, ready_at = [], [], None
+    t0 = time.perf_counter()
+    try:
+        for i, (img, imu) in enumerate(zip(frames, imus)):
+            states.append(system.track_mono_vi(img, imu, i / VI_FPS)[0])
+            debug.append({k: v for k, v in tr.debug.items()
+                          if k.startswith(("dr_", "vins"))})
+            if ready_at is None and tr.vio_ready:
+                ready_at = i
+    finally:
+        for r in rec.values():
+            r.restore()
+    return system, states, debug, ready_at, time.perf_counter() - t0, rec
+
+
+def check_vi_result(system, states, debug, ready_at, poses):
+    """The JAX VI tests' bounds: VINS init (before the first outage),
+    gravity, the metric span of the clean segment after init; after the
+    corrupted first outage the recovery gate's decision (re-anchor exactly
+    when the dead-reckoned state is more than DR_REANCHOR_GAP_M from the
+    visual pose) and the error after recovery; bounded dead-reckoning and
+    escalation in the second outage, recovery at the end. Then the
+    re-anchor branch itself, on the run's tracker."""
+    from ygz_tpu_torch.eval.ate import ate_rmse
+    from ygz_tpu_torch.utils.synthetic import G_W
+
+    tr = system.tracker
+    est = np.array([-r.R.T @ r.t for r in system.trajectory])
+    gt = np.array([-R.T @ t for R, t in poses])
+    ok = np.array([s == "OK" for s in states])
+    if not np.isfinite(est[ok]).all():
+        raise RuntimeError("mono-VI: non-finite poses in the trajectory")
+    a, b = VI_OUT1
+    c, d = VI_OUT2
+    print(f"mono-VI: VINS init at frame {ready_at} (scale "
+          f"{tr.vins_scale}, bg {tr.bg}, ba {tr.ba}); frames OK "
+          f"{int(ok.sum())}/{len(states)}; per segment: clean 0-{a - 1} "
+          f"{int(ok[:a].sum())}/{a}, outage 1 {int(ok[a:b].sum())}/{b - a}, "
+          f"clean {int(ok[b:c].sum())}/{c - b}, outage 2 "
+          f"{int(ok[c:d].sum())}/{d - c}, clean {int(ok[d:].sum())}/"
+          f"{len(states) - d}; keyframes {system.map.n_kf} "
+          f"({int(system.map.kf_valid[: system.map.n_kf].sum())} alive)")
+    if ready_at is None or ready_at >= a:
+        raise RuntimeError(f"mono-VI: VINS init at {ready_at}, not before "
+                           f"the first outage (frame {a})")
+    g = tr.gravity_w
+    cosg = float(np.dot(g, G_W) / (np.linalg.norm(g) * np.linalg.norm(G_W)))
+    post = [i for i in range(ready_at + 3, a) if ok[i]]
+    span = float(np.linalg.norm(est[post[-1]] - est[post[0]])
+                 / np.linalg.norm(gt[post[-1]] - gt[post[0]]))
+    rmse7, _ = ate_rmse(est[ok], gt[ok], with_scale=True)
+    raw = float(np.sqrt((np.linalg.norm(est[ok] - gt[ok], axis=1) ** 2)
+                        .mean()))
+    length = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+
+    def median_err(lo, hi):
+        """Median position error of the OK frames in [lo, hi) (the JAX
+        dead-reckoning test's recovery measure)."""
+        e = [float(np.linalg.norm(est[i] - gt[i]))
+             for i in range(lo, hi) if ok[i]]
+        return float(np.median(e)) if e else float("inf")
+
+    gate = [i for i in range(b, c) if "dr_gap" in debug[i]]
+    gap = debug[gate[0]]["dr_gap"] if gate else float("nan")
+    reanchored = bool(gate) and "dr_reanchored" in debug[gate[0]]
+    err1 = median_err(c - 10, c)
+    escalated = [i for i in range(c, d) if "dr_escalated" in debug[i]]
+    ok2 = int(ok[c:d].sum())
+    tail_err = median_err(len(states) - 10, len(states))
+    print(f"mono-VI: gravity {g} (cos {cosg:.5f} to the truth, bound "
+          f"0.985); span over frames {post[0]}-{post[-1]} {span:.5f} "
+          f"(bound 1 +- 0.12); ATE over {int(ok.sum())} OK frames: 7-DoF "
+          f"{rmse7:.5f}, unaligned {raw:.5f} ({100 * raw / length:.3f}% of "
+          f"the {length:.3f} path)")
+    print(f"mono-VI: outage 1: recovery gate at frames {gate}, gap "
+          f"{gap:.4f} m to the dead-reckoned state (re-anchor above "
+          f"{tr.DR_REANCHOR_GAP_M}): re-anchored {reanchored}; median "
+          f"position error of frames {c - 10}-{c - 1} {err1:.4f} m (bound "
+          f"0.30); outage 2: {ok2}/{d - c} OK (bound 24), escalated at "
+          f"frames {escalated}; last frame {states[-1]}; median position "
+          f"error of the last 10 frames {tail_err:.4f} m (bound 0.30)")
+    if cosg <= 0.985 or abs(span - 1.0) >= 0.12:
+        raise RuntimeError("mono-VI: gravity or metric span out of bounds")
+    if not gate or reanchored != (gap > tr.DR_REANCHOR_GAP_M):
+        raise RuntimeError(f"mono-VI: the recovery gate after outage 1 "
+                           f"(frames {gate}, gap {gap}, re-anchored "
+                           f"{reanchored})")
+    if not ok[c - 1] or err1 >= 0.30:
+        raise RuntimeError(f"mono-VI: after outage 1 frame {c - 1} "
+                           f"{states[c - 1]}, error {err1:.4f}")
+    if ok2 > 24 or not escalated:
+        raise RuntimeError(f"mono-VI: outage 2 {ok2} OK, escalations "
+                           f"{escalated}")
+    if states[-1] != "OK" or tail_err >= 0.30:
+        raise RuntimeError(f"mono-VI: last frame {states[-1]}, tail error "
+                           f"{tail_err:.4f}")
+
+    # the re-anchor branch: the last frame's visual pose against a
+    # dead-reckoned state 0.6 m away adopts the visual pose, unfused
+    rec = system.trajectory[-1]
+    R_vis, P_vis = tr._cam_to_body(rec.R, rec.t)
+    tr._ns = (P_vis + np.float32([0.6, 0.0, 0.0]), tr._ns[1], tr._ns[2])
+    tr._dr_frames, tr.debug = 1, {}
+    none = np.zeros(0, np.int64)
+    fused = tr._fuse_pose(rec.R, rec.t, none, np.zeros((0, 2)), none)
+    moved = float(np.abs(tr._ns[0] - P_vis).max())
+    print(f"mono-VI: forced 0.6 m dead-reckoning gap: re-anchored "
+          f"{tr.debug.get('dr_reanchored')}, NavState {moved:.2e} from the "
+          f"visual pose")
+    if fused is not None or abs(tr.debug.get("dr_reanchored", 0.0) - 0.6) \
+            > 1e-5 or moved > 1e-6:
+        raise RuntimeError("mono-VI: the re-anchor branch did not adopt the "
+                           "visual pose")
+
+
+def check_vi_numerics(rec, vins_scale, devices=("cuda", "cpu")):
+    """One pair optimization, one NavState window BA and the VINS
+    initialization, recorded from the card run, replayed on the card and on
+    the CPU: P within 1e-4, R within 1e-3 deg (pair), states within 1e-4
+    (window BA), scale within 1e-4 relative (VINS init; the card's replay
+    also within 1e-4 of the run's own scale). The card's pair optimization
+    and window BA are profiled too: device time and kernels per call."""
+    import torch
+    from ygz_tpu_torch.backend.vio_optim import (vio_pose_optimization_pair,
+                                                 vio_window_ba)
+    from ygz_tpu_torch.eval.ate import rotation_angle_deg
+    from ygz_tpu_torch.imu.preintegration import preintegrate
+    from ygz_tpu_torch.imu.vins_init import vins_initialize
+
+    def replay(fn, call):
+        out, ms, prof = [], [], ""
+        for dev in devices:
+            a, k = _map(call, lambda t: t.to(dev))
+            t0 = time.perf_counter()
+            res = _map(fn(*a, **k), lambda t: t.cpu().numpy())
+            out.append(res)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if dev == "cuda":
+                dms, n = device_time(lambda: fn(*a, **k), 2)
+                prof = f" (card: device {dms:.3f} ms over {n:.0f} kernels)"
+        return out, ms, prof
+
+    if not (rec["pair"].calls and rec["ba"].calls and rec["vins"].calls):
+        raise RuntimeError(f"mono-VI: nothing recorded to replay: "
+                           f"{[(k, len(r.calls)) for k, r in rec.items()]}")
+    (g, c), ms, prof = replay(vio_pose_optimization_pair,
+                              rec["pair"].calls[-1])
+    dP = float(np.abs(g.P - c.P).max())
+    dV = float(np.abs(g.V - c.V).max())
+    dR = rotation_angle_deg(g.R, c.R)
+    print(f"vio_pose_optimization_pair card vs CPU: P {dP:.2e}, V {dV:.2e}, "
+          f"R {dR:.2e} deg, inliers {float((g.inliers == c.inliers).mean()):.4f}"
+          f" equal; card {ms[0]:.1f} ms, CPU {ms[1]:.1f} ms{prof}")
+    if dP > 1e-4 or dR > 1e-3:
+        raise RuntimeError("the pair optimization on the card disagrees "
+                           "with the CPU")
+    (g, c), ms, prof = replay(vio_window_ba, rec["ba"].calls[0])
+    gaps = [float(np.abs(a - b).max()) for a, b in zip(g[:5], c[:5])]
+    W = rec["ba"].calls[0][1]["n_win"]
+    print(f"vio_window_ba (W {W}) card vs CPU: P/V/R/bg/ba "
+          f"{[f'{x:.2e}' for x in gaps]}, points "
+          f"{float(np.abs(g.points - c.points).max()):.2e}, total chi2 "
+          f"{float(g.total_chi2):.4f} / {float(c.total_chi2):.4f}; card "
+          f"{ms[0]:.1f} ms, CPU {ms[1]:.1f} ms{prof}")
+    if max(gaps) > 1e-4:
+        raise RuntimeError("the NavState window BA on the card disagrees "
+                           "with the CPU")
+    (c_w, R_wc, _, _, Tbc), _, windows = rec["vins"].calls[-1]
+    n = int(np.stack([w[3] for w in windows]).sum(-1).max())
+    out, ms = [], []
+    for dev in devices:
+        stacked = [torch.as_tensor(np.stack(a), device=dev)
+                   for a in zip(*windows)]
+
+        def preints(bg):
+            return preintegrate(*stacked, torch.as_tensor(
+                np.asarray(bg, np.float32), device=dev),
+                torch.zeros(3, device=dev), n_steps=n)
+        t0 = time.perf_counter()
+        out.append(vins_initialize(c_w, R_wc, preints(np.zeros(3)), preints,
+                                   Tbc))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    g, c = out
+    rel = abs(g.scale / c.scale - 1.0)
+    print(f"vins_initialize ({len(windows) + 1} keyframes) card vs CPU: "
+          f"scale {g.scale:.6f} / {c.scale:.6f} ({rel:.2e} relative; the "
+          f"run's {vins_scale:.6f}), "
+          f"gravity {float(np.abs(g.gravity_w - c.gravity_w).max()):.2e}, bg "
+          f"{float(np.abs(g.bg - c.bg).max()):.2e}; card {ms[0]:.1f} ms, CPU "
+          f"{ms[1]:.1f} ms")
+    if not (g.ok and c.ok) or rel > 1e-4 or abs(g.scale / vins_scale - 1.0) \
+            > 1e-4:
+        raise RuntimeError("VINS initialization on the card disagrees with "
+                           "the CPU")
+
+
 def run_counted(fast, label, fn):
     """Runs fn with every kernel's launch count set to 0 and the
     extractor's calls counted; checks one fused launch per extraction and
@@ -737,8 +1051,10 @@ def run_counted(fast, label, fn):
     torch.cuda.synchronize()
     fused = fast.fast_corner_maps.launches
     single = fast.fast_score_map.launches
-    print(f"{label}: {len(extractions)} extractions, fast_corners launches "
-          f"{fused}, single-threshold fast_score launches {single}")
+    by = collections.Counter(extractions)
+    print(f"{label}: {len(extractions)} extractions ({dict(by)}), "
+          f"fast_corners launches {fused}, single-threshold fast_score "
+          f"launches {single}")
     if not extractions or fused != len(extractions) or single:
         raise RuntimeError(f"{label} did not make exactly one fast_corners "
                            f"launch per extraction")
@@ -943,6 +1259,25 @@ def check_loop_correction():
                            "CPU")
 
 
+def time_paths(smi):
+    """The tracked paths of the earlier slices (mono, stereo, RGB-D) at the
+    smoke's depths, each with its stage report and nothing else: run as
+    `chip_smoke.py --paths-only` from two trees in one call, in turns, to
+    compare their host times on one card."""
+    _, _, frames = render_sequence(N_FRAMES)
+    st_poses, pairs = stereo_sequence(N_STEREO_FRAMES)
+    rg_poses, rg_frames = rgbd_sequence(N_RGBD_FRAMES)
+    runs = (("mono", lambda: run_main_path(frames, "cuda")),
+            ("stereo", lambda: run_depth_path("stereo", pairs, "cuda")),
+            ("rgbd", lambda: run_depth_path("rgbd", rg_frames, "cuda")))
+    for label, fn in runs:
+        system, states, _, secs = fn()
+        print(f"{label} path: {len(states)} frames, {states.count('OK')} OK, "
+              f"in {secs:.2f} s ({1e3 * secs / len(states):.2f} ms/frame "
+              f"mean)")
+        print(f"{label} path ({smi}) {system.tracker.timer.report()}")
+
+
 def main() -> int:
     import torch
 
@@ -963,6 +1298,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build("fast_score", verbose=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--paths-only"]:
+        time_paths(smi)
+        return 0
 
     t0 = time.perf_counter()
     scene, poses, frames = render_sequence(N_FRAMES + 3)
@@ -1015,6 +1353,21 @@ def main() -> int:
     # the first frame steps after RGB-D's one-frame init, card vs CPU
     init_sys = run_depth_path("rgbd", rg_frames[:1], "cuda")[0]
     check_step_vs_cpu(init_sys, [img for img, _ in rg_frames[1:6]])
+
+    t0 = time.perf_counter()
+    vi_poses, vi_frames, vi_imus = vi_sequence()
+    print(f"rendered {len(vi_frames)} mono-VI frames {W}x{H} with their IMU "
+          f"in {time.perf_counter() - t0:.1f} s")
+    (vsys, vstates, vdebug, ready_at, secs, rec), launches = run_counted(
+        fast, "mono-VI path",
+        lambda: run_vi_path(vi_frames, vi_imus, "cuda", record=True))
+    corners_rec["launches_mono_vi"] = launches
+    score_rec["launches_mono_vi"] = fast.fast_score_map.launches
+    print(f"mono-VI path: {len(vi_frames)} frames in {secs:.2f} s "
+          f"({1e3 * secs / len(vi_frames):.2f} ms/frame mean)")
+    print(f"mono-VI path ({smi}) {vsys.tracker.timer.report()}")
+    check_vi_result(vsys, vstates, vdebug, ready_at, vi_poses)
+    check_vi_numerics(rec, vsys.tracker.vins_scale)
 
     print(json.dumps({"kernels": [score_rec, corners_rec]}))
     print(json.dumps({"ok": True, "device": {

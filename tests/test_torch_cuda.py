@@ -1,5 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
-on a card. Imports no JAX, so it also runs where only PyTorch is installed:
+and the numerics of the later slices (RANSACs, IMU preintegration, the
+NavState pair optimization) against the same on the CPU, on a card.
+Imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
@@ -175,3 +177,102 @@ def test_sim3_ransac_cuda_matches_cpu(cuda):
     assert np.abs(t_g - t_c).max() < 1e-3 and abs(s_g - s_c) < 1e-3
     assert (in_g == in_c).mean() >= 0.99
     assert abs(s_g - s) < 1e-3 and not in_g[:n_out].any()
+
+
+# ---- mono-VI: the IMU numerics on the card against the CPU, and the
+# default device of System(Sensor.MONO_VI)
+
+
+def _imu_windows(rng, n_links=4, cap=128):
+    om = rng.normal(0, 0.3, (n_links, cap, 3)).astype(np.float32)
+    ac = (rng.normal(0, 0.5, (n_links, cap, 3))
+          + [0.0, 9.81, 0.0]).astype(np.float32)
+    dts = np.full((n_links, cap), 0.005, np.float32)
+    valid = np.arange(cap)[None, :] < rng.integers(20, cap, n_links)[:, None]
+    return om, ac, dts, valid
+
+
+@pytest.mark.cuda
+def test_preintegrate_cuda_matches_cpu(cuda):
+    from ygz_tpu_torch.imu.preintegration import preintegrate
+
+    rng = np.random.default_rng(0)
+    win = _imu_windows(rng)
+    bg = np.array([0.01, -0.02, 0.005], np.float32)
+    ba = np.array([0.05, 0.0, -0.1], np.float32)
+    cpu, card = (preintegrate(
+        *(torch.as_tensor(a, device=dev) for a in win),
+        torch.as_tensor(bg, device=dev), torch.as_tensor(ba, device=dev))
+        for dev in ("cpu", cuda))
+    for f, a, b in zip(cpu._fields, card, cpu):
+        b = b.numpy()
+        # float32 in another order: within 1e-5 of each field's scale
+        np.testing.assert_allclose(a.cpu().numpy(), b, err_msg=f,
+                                   atol=1e-6 + 1e-5 * float(np.abs(b).max()))
+
+
+@pytest.mark.cuda
+def test_vio_pose_optimization_pair_cuda_matches_cpu(cuda):
+    from ygz_tpu_torch.backend.vio_optim import vio_pose_optimization_pair
+    from ygz_tpu_torch.eval.ate import rotation_angle_deg
+    from ygz_tpu_torch.geometry.lie import so3_exp
+    from ygz_tpu_torch.imu.preintegration import preintegrate
+
+    rng = np.random.default_rng(3)
+    g = np.array([0.0, -9.81, 0.0], np.float32)
+    om = np.tile([0.1, 0.2, -0.15], (64, 1)).astype(np.float32)
+    ac = np.tile(-g + [0.3, 0.0, 0.1], (64, 1)).astype(np.float32)
+    dts = np.full(64, 0.005, np.float32)
+    valid = np.arange(64) < 10
+    intr = (458.0, 458.0, 375.5, 239.5)
+    N = 512
+    X = np.stack([rng.uniform(-3, 3, N), rng.uniform(-2, 2, N),
+                  rng.uniform(4, 9, N)], 1).astype(np.float32)
+    R1 = so3_exp(torch.tensor([0.005, 0.01, -0.0075])).numpy()
+    P1 = np.array([0.03, 0.0, 0.0], np.float32)
+
+    def proj(P, R):
+        Xc = (X - P) @ R
+        return (np.stack([intr[0] * Xc[:, 0] / Xc[:, 2] + intr[2],
+                          intr[1] * Xc[:, 1] / Xc[:, 2] + intr[3]], 1)
+                + rng.normal(0, 0.3, (N, 2))).astype(np.float32)
+
+    uv0, uv1 = proj(np.zeros(3, np.float32), np.eye(3)), proj(P1, R1)
+    z = np.zeros(3, np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+        pre = preintegrate(t(om), t(ac), t(dts),
+                           torch.as_tensor(valid, device=dev), t(z), t(z))
+        prev = (t(z), t([0.6, 0.0, 0.0]), t(np.eye(3)), t(z), t(z))
+        cur = (t(P1), t([0.6, 0.0, 0.0]), t(R1), t(z), t(z))
+        res = vio_pose_optimization_pair(
+            cur, prev, pre, (t(z), t(z)), prev, t(np.eye(15) * 1e3), True,
+            t(X), t(uv0), t(np.ones(N)), torch.ones(N, dtype=torch.bool,
+                                                    device=dev),
+            t(X), t(uv1), t(np.ones(N)), torch.ones(N, dtype=torch.bool,
+                                                    device=dev),
+            t(np.eye(3)), t(z), intr, t(g))
+        outs.append([a.cpu().numpy() for a in (res.P, res.V, res.R, res.bg,
+                                               res.ba, res.inliers,
+                                               res.prior_info)])
+    (P_c, V_c, R_c, bg_c, ba_c, in_c, M_c), (P_g, V_g, R_g, bg_g, ba_g,
+                                             in_g, M_g) = outs
+    np.testing.assert_allclose(P_g, P_c, atol=1e-4)
+    np.testing.assert_allclose(V_g, V_c, atol=1e-4)
+    assert rotation_angle_deg(R_g, R_c) < 1e-3
+    np.testing.assert_allclose(bg_g, bg_c, atol=1e-5)
+    np.testing.assert_allclose(ba_g, ba_c, atol=1e-5)
+    assert (in_g == in_c).mean() >= 0.99
+    assert np.linalg.norm(M_g - M_c) < 1e-3 * np.linalg.norm(M_c)
+
+
+@pytest.mark.cuda
+def test_mono_vi_system_builds_on_cuda_by_default(cuda):
+    from ygz_tpu_torch.frontend.vi_tracker import MonoViTracker
+    from ygz_tpu_torch.geometry.camera import Camera
+    from ygz_tpu_torch.system import Sensor, System
+
+    cam = Camera.make(458.0, 458.0, 375.5, 239.5, 752, 480)
+    tr = System(cam, Sensor.MONO_VI).tracker
+    assert isinstance(tr, MonoViTracker) and tr.device.type == "cuda"

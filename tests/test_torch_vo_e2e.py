@@ -8,6 +8,7 @@ import pytest
 from ygz_tpu_torch.eval.ate import ate_rmse
 from ygz_tpu_torch.frontend.tracker import (RgbdTracker, StereoTracker,
                                             TrackerConfig)
+from ygz_tpu_torch.frontend.vi_tracker import MonoViTracker
 from ygz_tpu_torch.geometry.camera import Camera
 from ygz_tpu_torch.system import Sensor, System
 from ygz_tpu_torch.utils.synthetic import SmoothScene
@@ -62,8 +63,14 @@ def test_port_rejects_unported_settings():
                 TrackerConfig(async_mapping=True)):
         with pytest.raises(NotImplementedError):
             System(cam, Sensor.MONOCULAR, config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        System(cam, Sensor.MONO_VI, device="cpu")
+    # mono-VI is ported: the VI tracker, with the rig and its settings
+    Tbc = np.eye(4, dtype=np.float32)
+    Tbc[:3, 3] = [0.02, 0.0, -0.01]
+    vi = System(cam, Sensor.MONO_VI, Tbc=Tbc, device="cpu",
+                vins_init_kfs=6).tracker
+    assert isinstance(vi, MonoViTracker) and not vi.vio_ready
+    assert vi.vins_init_kfs == 6 and np.array_equal(vi.Tbc, Tbc)
+    assert vi.device.type == "cpu" and not vi.cfg.enable_loop_closing
     # stereo and RGB-D are ported; stereo needs the rig's Camera.bf (its
     # depths are bf / disparity), RGB-D without it gets the JAX package's
     # virtual 0.08 m baseline

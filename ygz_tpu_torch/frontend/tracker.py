@@ -13,10 +13,15 @@ tracker relocalizes through BoW candidates and EPnP RANSAC. Each keyframe
 is indexed for place recognition and tested for a loop; an accepted loop is
 corrected through the Sim3 essential graph, then a global BA.
 
+The sensor-fusion hooks of the JAX tracker (``_predict_pose``,
+``_on_vision_failed``, ``_fuse_pose``, ``_kf_time_gap``,
+``_on_keyframe_created``, ``_run_local_ba``, ``_cull_keyframes``) keep their
+no-op defaults here; the mono-VI subclass (``frontend/vi_tracker.py``)
+overrides them.
+
 Not ported yet (ROADMAP queue A): the async mapping worker (and with it
 the stereo/RGB-D close-point term of the keyframe decision),
-``track_batch``, the octree keypoint mode, multi-device BA, and the
-mono-VI subclass.
+``track_batch``, the octree keypoint mode and multi-device BA.
 """
 from __future__ import annotations
 
@@ -372,9 +377,14 @@ class MonoTracker:
             self._rebuild_cache()
         snap = self._snap
         ids, dev = snap[0], snap[1]
+        # external pose prediction (mono-VI: IMU propagation); the step
+        # falls back to its on-device velocity model otherwise
+        pred = self._predict_pose()
+        pred_vec = self._no_pred if pred is None else \
+            self._t(pack_pred_np(pred[0], pred[1], True))
         with self.timer.stage("frame_step"):
             self._carry, out = frame_step(
-                self._t(img), self._carry, dev, self._no_pred, self._remap,
+                self._t(img), self._carry, dev, pred_vec, self._remap,
                 self.intr, n_levels=cfg.n_levels,
                 scale_factor=cfg.scale_factor, min_align=cfg.min_align_points)
             out = unpack_out(out.cpu().numpy(), cfg.max_track)
@@ -398,6 +408,8 @@ class MonoTracker:
         np.add.at(smap.pt_visible, ids[visible], 1)
         np.add.at(smap.pt_found, ids[tracked], 1)
         t_ids, t_uv, t_lvl = ids[tracked], uv[tracked], lvl[tracked]
+        # world positions of the tracked points as the snapshot held them
+        t_xyz = snap_xyz[:n][tracked] if snap_xyz is not None else None
         R_cur, t_cur = out.R, out.t
         pyr = self._carry.pyr          # this frame's stacked pyramid
 
@@ -405,6 +417,18 @@ class MonoTracker:
         if n_inliers < cfg.min_track_inliers:
             # feature fallback ladder (reference Tracking.cc:563-577)
             fb = self._feature_fallback(pyr, out.R_pred, out.t_pred)
+            if fb is None and self._on_vision_failed(pyr, ts, out.R_pred,
+                                                     out.t_pred):
+                # the IMU kept the state alive (vision-weak mode) — unless
+                # the subclass escalated to relocalization and recovered
+                # another pose, with the tracking state rebuilt there
+                rp = self._recovered_pose_override
+                if rp is not None:
+                    self._recovered_pose_override = None
+                    return True, rp[0], rp[1]
+                self._set_last_frame(pyr, out.R_pred, out.t_pred,
+                                     cache_uv=None)
+                return True, out.R_pred, out.t_pred
             if fb is None:
                 last_R, last_t = self._last_R, self._last_t
                 self.state = State.LOST
@@ -415,17 +439,24 @@ class MonoTracker:
                     self.state = State.NOT_INITIALIZED
                 return False, last_R, last_t
             R_cur, t_cur, t_ids, t_uv, t_lvl = fb
+            t_xyz = None   # fallback matches are not snapshot-aligned
             n_inliers = len(t_ids)
             recovered = True
             self.debug["n_inliers_feat"] = n_inliers
             np.add.at(smap.pt_found, t_ids, 1)
             np.add.at(smap.pt_visible, t_ids, 1)
+        # sensor fusion (mono-VI: the NavState optimization over the
+        # tracked observations and the preintegration factor)
+        fused = self._fuse_pose(R_cur, t_cur, t_ids, t_uv, t_lvl, xyz=t_xyz)
+        if fused is not None:
+            R_cur, t_cur = fused
+            recovered = True
         self.state = State.OK
         Rl_inv = self._last_R.T
         self._vel = (np.asarray(R_cur @ Rl_inv, np.float32),
                      np.asarray(t_cur - (R_cur @ Rl_inv) @ self._last_t,
                                 np.float32))
-        if self._need_new_keyframe(n_inliers):
+        if self._need_new_keyframe(ts, n_inliers):
             with self.timer.stage("keyframe"):
                 R_cur, t_cur = self._create_keyframe(pyr, ts, R_cur, t_cur,
                                                      t_ids, t_uv, t_lvl)
@@ -438,17 +469,18 @@ class MonoTracker:
             self._last_t = np.asarray(t_cur, np.float32)
         return True, R_cur, t_cur
 
-    def _need_new_keyframe(self, n_inliers) -> bool:
+    def _need_new_keyframe(self, ts, n_inliers) -> bool:
         """Keyframe decision (reference NeedNewKeyFrame) for the synchronous
-        monocular tracker: the mapper is always idle, so after the minimum
-        gap a KF is due at the hard cap or when tracking weakens (c2)."""
+        tracker: the mapper is always idle, so after the minimum gap a KF is
+        due at the hard cap, at the IMU time gap (mono-VI), or when tracking
+        weakens (c2)."""
         cfg = self.cfg
         if self.localization_only:
             return False
         gap = self.frame_id - self._last_kf_frame
         if gap < cfg.kf_min_gap:
             return False
-        if gap >= cfg.kf_max_gap:
+        if gap >= cfg.kf_max_gap or self._kf_time_gap(ts):
             return True
         return (n_inliers < cfg.kf_ratio * self._kf_ref_tracked
                 or n_inliers < 50)
@@ -811,6 +843,7 @@ class MonoTracker:
         self._last_kf_frame = self.frame_id
         self._kf_ref_tracked = int((smap.kf_feat_pt[kf] >= 0).sum())
         self._publish_snapshot()
+        self._on_keyframe_created(kf, ts)
         self._mapping_tail(kf, pyr)
         return smap.kf_R[kf].copy(), smap.kf_t[kf].copy()
 
@@ -855,10 +888,10 @@ class MonoTracker:
                 smap.assign_parent(kf)
                 self.mapper.update_distinctive_descriptors(smap, kf)
             with self.timer.stage("mt_local_ba"):
-                self.mapper.local_ba(smap, kf)
+                self._run_local_ba(smap, kf)
             with self.timer.stage("mt_cull"):
                 self.mapper.cull_points(smap)
-                n_culled = self.mapper.cull_keyframes(smap, kf)
+                n_culled = self._cull_keyframes(smap, kf)
             if n_culled and self.bow_index is not None:
                 # a culled keyframe must leave the BoW index too
                 m = min(len(self.bow_index.kf_valid), smap.n_kf)
@@ -872,6 +905,45 @@ class MonoTracker:
             if self.bow_index is not None:
                 self._place_recognition(kf, pyr)
             self._rebuild_cache()
+
+    # -------------------------------------------------------- sensor hooks
+    # The mono-VI tracker (frontend/vi_tracker.py) overrides these.
+    _recovered_pose_override = None
+
+    def _predict_pose(self):
+        """Pose prediction override (mono-VI: IMU propagation). Return
+        (R_pred, t_pred) or None to use the velocity model."""
+        return None
+
+    def _fuse_pose(self, R_cur, t_cur, ids, uv, lvl, xyz=None):
+        """Sensor-fusion refinement of the visually tracked pose. `xyz`:
+        the tracked points' world positions as the frame step's snapshot
+        held them (None: read the live map). Return (R, t) or None to keep
+        the visual pose."""
+        return None
+
+    def _on_vision_failed(self, pyr, ts, R_pred, t_pred) -> bool:
+        """Called when direct tracking and the fallback ladder fail. Return
+        True to keep tracking on the predicted pose (IMU dead-reckoning);
+        False -> LOST."""
+        return False
+
+    def _kf_time_gap(self, ts) -> bool:
+        """IMU cTimeGap (mono-VI: a keyframe after 0.5 s)."""
+        return False
+
+    def _on_keyframe_created(self, kf, ts):
+        """Called after a keyframe is added, before its mapping tail."""
+
+    def _run_local_ba(self, smap, kf):
+        """Local BA of the mapping tail; the mono-VI tracker swaps in the
+        NavState window BA once VINS-initialized."""
+        self.mapper.local_ba(smap, kf)
+
+    def _cull_keyframes(self, smap, kf):
+        """Keyframe culling of the mapping tail; the mono-VI tracker adds
+        the IMU-chain guards and merges culled keyframes' IMU windows."""
+        return self.mapper.cull_keyframes(smap, kf)
 
     def _place_recognition(self, kf, pyr):
         """Index the keyframe; with loop closing on, test it for a loop and,

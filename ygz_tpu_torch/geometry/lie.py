@@ -71,6 +71,11 @@ def so3_left_jacobian(w):
             + _x_minus_sin_over_x3(theta2) * (W @ W))
 
 
+def so3_right_jacobian(w):
+    """Right Jacobian J_r of SO(3) = J_l(-w) (IMU preintegration)."""
+    return so3_left_jacobian(-w)
+
+
 def so3_log(R):
     """Rotation [..., 3, 3] -> axis-angle [..., 3] (angles < pi - eps; the
     near-pi branch of the JAX version is kept)."""

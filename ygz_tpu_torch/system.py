@@ -1,11 +1,11 @@
 """System facade: the public entry point of the PyTorch port.
 
-Port of ``ygz_tpu/system.py`` for ``Sensor.MONOCULAR``, ``Sensor.STEREO``
-and ``Sensor.RGBD``: construction, ``track_monocular``, ``track_stereo``,
-``track_rgbd``, the TUM and KITTI trajectory savers, ``trajectory``,
+Port of ``ygz_tpu/system.py`` for all four sensors: construction,
+``track_monocular``, ``track_stereo``, ``track_rgbd``, ``track_mono_vi``,
+the TUM, KITTI and keyframe-NavState trajectory savers, ``trajectory``,
 ``map``, ``reset``, map save/load (a loaded map is entered through
-relocalization) and the localization-only mode. ``Sensor.MONO_VI`` and
-batched tracking are not ported yet (ROADMAP queue A).
+relocalization) and the localization-only mode. Batched tracking
+(``track_monocular_batch``) is not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from .backend.mapstate import SlamMap
 from .geometry import camera as cam_mod
 from .frontend.tracker import (MonoTracker, RgbdTracker, State,
                                StereoTracker, TrackerConfig)
+from .frontend.vi_tracker import MonoViTracker
 
 
 class Sensor(enum.Enum):
@@ -67,23 +68,28 @@ class System:
 
     Args:
       cam: geometry.camera.Camera.
-      sensor: Sensor mode (MONOCULAR, STEREO or RGBD; STEREO needs
-        Camera.bf = baseline * fx and a rectified, undistorted pair).
+      sensor: Sensor mode (STEREO needs Camera.bf = baseline * fx and a
+        rectified, undistorted pair).
       config: TrackerConfig overrides.
+      Tbc: MONO_VI only: [4, 4] camera pose in the body (IMU) frame
+        (identity by default).
       device: where the tensors live ("cuda" by default; "cpu" runs the
         plain PyTorch versions of the kernels).
+      **vi_kwargs: MONO_VI only: MonoViTracker's gravity_mag,
+        vins_init_kfs, vins_init_time.
     """
 
     def __init__(self, cam: cam_mod.Camera, sensor: Sensor = Sensor.MONOCULAR,
-                 config: Optional[TrackerConfig] = None, device="cuda"):
-        trackers = {Sensor.MONOCULAR: MonoTracker, Sensor.RGBD: RgbdTracker,
-                    Sensor.STEREO: StereoTracker}
-        if sensor not in trackers:
-            raise NotImplementedError(
-                f"{sensor} is not ported yet: ROADMAP queue A, item 18 "
-                f"(mono-VI)")
+                 config: Optional[TrackerConfig] = None, Tbc=None,
+                 device="cuda", **vi_kwargs):
         self.cam = cam
         self.sensor = sensor
+        if sensor == Sensor.MONO_VI:
+            self.tracker = MonoViTracker(cam, config, Tbc=Tbc, device=device,
+                                         **vi_kwargs)
+            return
+        trackers = {Sensor.MONOCULAR: MonoTracker, Sensor.RGBD: RgbdTracker,
+                    Sensor.STEREO: StereoTracker}
         self.tracker = trackers[sensor](cam, config, device=device)
 
     @staticmethod
@@ -110,6 +116,13 @@ class System:
         metric [H, W] depth map aligned with `img`. Returns what
         track_monocular returns."""
         return self._result(*self.tracker.track(img, timestamp, depth=depth))
+
+    def track_mono_vi(self, img, imu, timestamp: float):
+        """Mono-inertial entry point (reference System::TrackMonoVI): `imu`
+        is an iterable of (t, gyro[3], acc[3]) samples since the previous
+        frame. Returns what track_monocular returns (metric once VINS
+        initialization has run)."""
+        return self._result(*self.tracker.track(img, timestamp, imu=imu))
 
     def save_trajectory_tum(self, path: str):
         """TUM format (ts tx ty tz qx qy qz qw of the camera in the world)
@@ -138,6 +151,25 @@ class System:
                 if smap.kf_valid[k]:
                     f.write(_tum_line(smap.kf_ts[k], smap.kf_R[k],
                                       smap.kf_t[k]))
+
+    def save_keyframe_trajectory_navstate(self, path: str):
+        """Mono-VI only: per-keyframe body NavState 'ts px py pz qx qy qz qw
+        vx vy vz bgx bgy bgz bax bay baz' (reference
+        System::SaveKeyFrameTrajectoryNavState)."""
+        tr = self.tracker
+        if not getattr(tr, "vio_ready", False):
+            raise RuntimeError("NavState trajectory requires the MONO_VI "
+                               "tracker after VINS initialization")
+        smap = tr.map
+        with open(path, "w") as f:
+            for k in sorted(tr._kf_ns):
+                if k >= smap.n_kf or not smap.kf_valid[k]:
+                    continue
+                P, V, R_wb = tr._kf_ns[k]
+                q = rotmat_to_quat(R_wb)  # [w, x, y, z]
+                vals = [smap.kf_ts[k], *P, q[1], q[2], q[3], q[0], *V,
+                        *tr.bg, *tr.ba]
+                f.write(" ".join(f"{v:.7f}" for v in vals) + "\n")
 
     @property
     def trajectory(self):

@@ -6,6 +6,11 @@ by inverse-warping the texture with clamped bilinear sampling. Every pixel
 has known depth, which gives analytic ground truth for the end-to-end runs
 (tests and ``chip_smoke.py``). Rendering stays on the host so the frames
 are identical whichever device the tracker runs on.
+
+The mono-inertial runs add a continuous camera trajectory (``pose_fn``:
+0.6 m/s forward, a +-0.15 m lateral sine, small angles) and its exact IMU
+(``synth_imu``: analytic accelerations, float64 rotation rates, 200 Hz), for
+any body-to-camera rig ``Tbc``.
 """
 from __future__ import annotations
 
@@ -158,3 +163,86 @@ class SmoothScene(PlaneScene):
     def __init__(self, **kw):
         kw.setdefault("depth_fn", smooth_depth)
         super().__init__(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Continuous mono-inertial trajectory and its IMU
+
+G_W = np.array([0.0, -9.81, 0.0], np.float32)  # world gravity (vision frame)
+IMU_HZ = 200.0
+
+
+def _rodrigues64(w):
+    """float64 SO(3) exp (the synthesis must not lose precision to
+    float32)."""
+    th = np.linalg.norm(w)
+    if th < 1e-12:
+        return np.eye(3)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+
+def _log64(R):
+    c = np.clip((np.trace(R) - 1) / 2, -1, 1)
+    th = np.arccos(c)
+    if th < 1e-10:
+        return np.zeros(3)
+    v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return v * th / (2 * np.sin(th))
+
+
+def _angles(t):
+    return np.array([0.015 * np.sin(1.8 * t + 1.0), 0.03 * np.sin(3.0 * t),
+                     0.0])
+
+
+def _centre(t):
+    return np.array([0.6 * t, 0.15 * np.sin(2.0 * t), 0.0])
+
+
+def _accel(t):
+    return np.array([0.0, -0.6 * np.sin(2.0 * t), 0.0])  # exact c''(t)
+
+
+def _R_cw64(t):
+    return _rodrigues64(_angles(t))
+
+
+def pose_fn(t):
+    """Continuous camera trajectory: the world->cam (R, t) at time t."""
+    R = _R_cw64(t)
+    c = _centre(t)
+    return R.astype(np.float32), (-R @ c).astype(np.float32)
+
+
+def _R_wb64(t, Rbc):
+    return _R_cw64(t).T @ Rbc.T
+
+
+def synth_imu(t0, t1, Tbc=None, g_w=G_W, hz=IMU_HZ):
+    """IMU samples (t, gyro [3], acc [3]) in (t0, t1] of the body of a rig
+    whose camera follows pose_fn; Tbc [4, 4] is the camera pose in the body
+    frame (identity: body == camera). Analytic accelerations of the camera
+    centre, float64 rotation rates (float32 double differencing would add
+    ~100 m/s^2 of noise); a lever arm tbc adds the second difference of
+    R_wb tbc (float64, h = 1e-3)."""
+    Tbc = np.eye(4) if Tbc is None else np.asarray(Tbc, np.float64)
+    Rbc, tbc = Tbc[:3, :3], Tbc[:3, 3]
+    eps, h = 1e-6, 1e-3
+    out = []
+    n = int(round((t1 - t0) * hz))
+    for k in range(1, n + 1):
+        t = t0 + k / hz
+        Rwb_m = _R_wb64(t - eps, Rbc)
+        Rwb_p = _R_wb64(t + eps, Rbc)
+        omega = _log64(Rwb_m.T @ Rwb_p) / (2 * eps)
+        # body position p_wb = c - R_wb tbc
+        acc_w = _accel(t)
+        if np.any(tbc):
+            acc_w = acc_w - (_R_wb64(t + h, Rbc) @ tbc
+                             - 2 * _R_wb64(t, Rbc) @ tbc
+                             + _R_wb64(t - h, Rbc) @ tbc) / (h * h)
+        acc_body = _R_wb64(t, Rbc).T @ (acc_w - g_w)
+        out.append((t, omega.astype(np.float32), acc_body.astype(np.float32)))
+    return out
