@@ -276,3 +276,200 @@ def test_mono_vi_system_builds_on_cuda_by_default(cuda):
     cam = Camera.make(458.0, 458.0, 375.5, 239.5, 752, 480)
     tr = System(cam, Sensor.MONO_VI).tracker
     assert isinstance(tr, MonoViTracker) and tr.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The frame step replayed as a CUDA graph, the batched path and the async
+# mapping worker on the card
+
+def _sweep(n, step=0.03):
+    """tests/test_vo_e2e.py's sideways sweep (make_trajectory), with the
+    port's so3_exp."""
+    from ygz_tpu_torch.geometry.lie import so3_exp
+
+    poses = []
+    for i in range(n):
+        w = np.array([0.015 * np.sin(i * 0.09 + 1.0), 0.03 * np.sin(i * 0.15),
+                      0.0], np.float32)
+        R = so3_exp(torch.as_tensor(w)).numpy()
+        c = np.array([step * i, 0.15 * np.sin(i * 0.1), 0.0], np.float32)
+        poses.append((R, (-R @ c).astype(np.float32)))
+    return poses
+
+
+def _sweep_frames(n):
+    from ygz_tpu_torch.geometry.camera import Camera
+
+    scene = SmoothScene(seed=11)
+    cam = Camera.make(scene.f, scene.f, scene.cx, scene.cy, scene.w, scene.h)
+    return cam, [scene.render_u8(R, t) for R, t in _sweep(n)]
+
+
+@pytest.mark.cuda
+def test_frame_step_graph_replays_the_eager_step(cuda):
+    """A tracker's captured frame step against the eager frame_step on the
+    same static inputs, frame after frame over 24 frames (the graph chains
+    its own carry): poses within 1e-5, tracked and visible masks equal."""
+    from ygz_tpu_torch.frontend.framestep import (FrameCarry, frame_step,
+                                                  unpack_out)
+    from ygz_tpu_torch.system import Sensor, System
+
+    cam, frames = _sweep_frames(36)
+    system = System(cam, Sensor.MONOCULAR)
+    for i, img in enumerate(frames[:12]):
+        system.track_monocular(img, i * 0.05)
+    tr = system.tracker
+    graph = tr._graph
+    assert tr.state.name == "OK" and graph is not None and graph.replays > 0
+    cap = tr.cfg.max_track
+    cache = tr._snap[1]
+    exact = True
+    for img in frames[12:]:
+        carry = FrameCarry(*(a.clone() for a in graph.carry))
+        new, eager = frame_step(torch.as_tensor(img, device=cuda), carry,
+                                cache, graph.no_pred, None, tr.intr)
+        graph.load(graph.carry, cache, graph.no_pred)
+        replay = graph.step(torch.as_tensor(img)).clone()
+        a = unpack_out(eager.cpu().numpy(), cap)
+        b = unpack_out(replay.cpu().numpy(), cap)
+        np.testing.assert_allclose(b.R, a.R, atol=1e-5)
+        np.testing.assert_allclose(b.t, a.t, atol=1e-5)
+        assert np.array_equal(a.tracked, b.tracked)
+        assert np.array_equal(a.visible, b.visible)
+        assert a.n_inliers > 100
+        exact &= bool(torch.equal(eager, replay)) and all(
+            torch.equal(x, y) for x, y in zip(new, graph.carry))
+    print(f"graph replay bit-exact against eager over 24 frames: {exact}")
+
+
+@pytest.mark.cuda
+def test_batched_path_on_the_card_matches_the_cpu(cuda):
+    """System.track_monocular_batch (B = 8, two chunks in flight) on the
+    card and on the CPU over 32 frames: the same state per frame."""
+    from ygz_tpu_torch.frontend.tracker import TrackerConfig
+    from ygz_tpu_torch.system import Sensor, System
+
+    cam, frames = _sweep_frames(32)
+    stamps = [i * 0.05 for i in range(32)]
+    states = []
+    for dev in (cuda, "cpu"):
+        system = System(cam, Sensor.MONOCULAR, device=dev,
+                        config=TrackerConfig(track_batch=8))
+        out = system.track_monocular_batch(frames, stamps)
+        states.append([name for name, _ in out])
+        if dev is cuda:
+            assert system.tracker._graph.replays >= 24
+    assert states[0] == states[1], states
+    assert states[0][-1] == "OK"
+
+
+CAPTURE_FAILS = """
+import torch
+from ygz_tpu_torch.frontend import framestep_graph
+real = framestep_graph.frame_step
+
+def syncing_step(*args, **kw):
+    carry, packed = real(*args, **kw)
+    if packed.sum().item() > -1.0:     # a host sync inside the step
+        return carry, packed
+    return carry, packed
+
+framestep_graph.frame_step = syncing_step
+try:
+    framestep_graph.FrameStepGraph(120, 160, 64, (100.0, 100.0, 79.5, 59.5))
+except RuntimeError as e:
+    print("capture refused:", str(e).splitlines()[0])
+    raise SystemExit(3)
+raise SystemExit(0)
+"""
+
+
+@pytest.mark.cuda
+def test_a_capture_that_cannot_succeed_raises(cuda):
+    """A frame step that syncs the host cannot be captured: the capture
+    raises (no silent eager fall back). In a child process, so the failed
+    capture leaves no state behind in this one."""
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c", CAPTURE_FAILS],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    assert "capture refused" in proc.stdout
+
+
+@pytest.mark.cuda
+def test_fast_corners_from_the_mapping_worker_stream(cuda):
+    """The fused FAST launch issued from another thread on its own stream
+    (where the async worker runs deferred keyframe extraction) equals its
+    plain version, and is counted."""
+    import threading
+
+    scene = SmoothScene(seed=11, w=752, h=480, f=458.0, tex_size=2000)
+    stack = _stacked(render_u8(scene, np.eye(3), np.zeros(3)), cuda)
+    want = fast.fast_corner_maps_torch(stack, 480, 4, 20.0, 7.0)
+    stream = torch.cuda.Stream(cuda)
+    got = {}
+
+    def worker():
+        with torch.cuda.stream(stream):
+            got["map"] = fast.fast_corner_maps(stack, 480, 4, 20.0, 7.0)
+            got["stream"] = torch.cuda.current_stream(cuda).cuda_stream
+        stream.synchronize()
+
+    before = fast.fast_corner_maps.launches
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    assert got["stream"] == stream.cuda_stream
+    assert fast.fast_corner_maps.launches == before + 1
+    assert torch.equal(got["map"], want)
+
+
+@pytest.mark.cuda
+def test_async_system_builds_on_cuda_by_default(cuda):
+    from ygz_tpu_torch.frontend.tracker import TrackerConfig
+    from ygz_tpu_torch.geometry.camera import Camera
+    from ygz_tpu_torch.system import Sensor, System
+
+    cam = Camera.make(458.0, 458.0, 375.5, 239.5, 752, 480)
+    system = System(cam, Sensor.MONOCULAR,
+                    config=TrackerConfig(async_mapping=True, track_batch=32))
+    tr = system.tracker
+    assert tr.device.type == "cuda" and tr._map_worker.is_alive()
+    assert tr._map_stream is not None and tr.cfg.pipeline_depth == 2
+    system.shutdown()
+
+
+@pytest.mark.cuda
+def test_frame_step_batch_on_cuda_needs_its_graph(cuda):
+    """frame_step_batch on CUDA tensors replays the caller's graph; without
+    one it raises instead of capturing a graph per call."""
+    from ygz_tpu_torch.frontend.framestep import (CACHE_COLS, FrameCarry,
+                                                  frame_step_batch)
+
+    carry = FrameCarry(pyr=torch.zeros(180, 160, device=cuda),
+                       state=torch.zeros(24, device=cuda),
+                       pts=torch.zeros(64, 6, device=cuda))
+    with pytest.raises(ValueError, match="FrameStepGraph"):
+        frame_step_batch(torch.zeros(2, 120, 160, device=cuda), carry,
+                         torch.zeros(64, CACHE_COLS, device=cuda), None,
+                         (100.0, 100.0, 79.5, 59.5))
+
+
+@pytest.mark.cuda
+def test_segment_sum_repeats_on_the_card(cuda):
+    """optim.segment_sum on the card: bit-identical from call to call with
+    heavily repeated ids (where atomic adds vary), and equal to the CPU's
+    row-order sum within float32 rounding."""
+    from ygz_tpu_torch.backend.optim import segment_sum
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(40000, 6, 3, generator=g)
+    ids = torch.randint(0, 37, (40000,), generator=g)
+    xd, idd = x.to(cuda), ids.to(cuda)
+    first = segment_sum(xd, idd, 37)
+    assert all(torch.equal(first, segment_sum(xd, idd, 37))
+               for _ in range(5))
+    torch.testing.assert_close(first.cpu(), segment_sum(x, ids, 37),
+                               atol=1e-3, rtol=1e-5)

@@ -58,10 +58,9 @@ def test_port_mono_vo_30_frames(tmp_path):
 def test_port_rejects_unported_settings():
     scene = SmoothScene(seed=0, w=64, h=48, f=40.0, tex_size=64)
     cam = Camera.make(scene.f, scene.f, scene.cx, scene.cy, scene.w, scene.h)
-    for cfg in (TrackerConfig(keypoint_mode="octree"),
-                TrackerConfig(mesh_devices=2),
-                TrackerConfig(async_mapping=True)):
-        with pytest.raises(NotImplementedError):
+    for cfg, item in ((TrackerConfig(keypoint_mode="octree"), "A3"),
+                      (TrackerConfig(mesh_devices=2), "A8")):
+        with pytest.raises(NotImplementedError, match=item):
             System(cam, Sensor.MONOCULAR, config=cfg, device="cpu")
     # mono-VI is ported: the VI tracker, with the rig and its settings
     Tbc = np.eye(4, dtype=np.float32)

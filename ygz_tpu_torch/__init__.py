@@ -9,7 +9,9 @@ The JAX package's default monocular configuration is ported:
 ``System.track_monocular`` -> ``MonoTracker.track`` -> the fused frame
 step, ORB extraction, two-view init, the keyframe mapping tail, BoW place
 recognition, relocalization (EPnP RANSAC) and loop closing (Sim3, essential
-graph, global BA). Its hand-written kernel source is the FAST-10 one
+graph, global BA), batched tracking (``System.track_monocular_batch``)
+and the async mapping worker; on the card the frame step is replayed as a
+captured CUDA graph. Its hand-written kernel source is the FAST-10 one
 (``csrc/fast_score.cu``, wrappers in ``ops/fast.py``): the extractor's
 front (both thresholds, merge, 3x3 NMS over the whole stacked pyramid in
 one launch) and the single-threshold score map, launched for CUDA tensors;

@@ -5,7 +5,8 @@ residual blocks; local BA eliminates landmarks with a dense-block Schur
 complement. ``lax.fori_loop``/``lax.scan`` become Python loops with the
 same fixed iteration counts (no data-dependent exit: on the card one would
 sync the host every iteration), vmaps become an explicit batch dimension,
-``segment_sum`` becomes ``index_add_``.
+``jax.ops.segment_sum`` becomes ``segment_sum`` below (a fixed summation
+order on the card, so a run repeats bit for bit).
 
 Constants follow the reference (Optimizer::PoseOptimization: 4 rounds x 10
 iterations, chi2 gate 5.991 mono, Huber in the first two rounds;
@@ -102,6 +103,19 @@ def solve_preconditioned(H, b):
     # solve_ex: no host sync on the info check; a singular system gives
     # non-finite steps, as the reference's solve does
     return torch.linalg.solve_ex(Hs, b / d).result / d
+
+
+def segment_sum(x, ids, n: int):
+    """jax.ops.segment_sum: the rows of x summed into n segments by ids.
+    On the card it is the accumulating ``index_put_``, which sorts the ids
+    and sums each segment in that fixed order, so a run repeats bit for
+    bit; ``index_add_`` there adds atomically in arrival order, which
+    varies from run to run. On the CPU ``index_add_`` sums in row order."""
+    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    if x.device.type == "cuda":
+        return out.index_put_((ids.long(),), x, accumulate=True)
+    return out.index_add_(0, ids, x)
 
 
 class PoseOptResult(NamedTuple):
@@ -202,10 +216,6 @@ def local_bundle_adjustment(kf_R, kf_t, fixed, points, pt_valid,
         r, _, _, z = rj(kf_R, kf_t, points)
         return (r * r).sum(1) * obs_inv_sigma2, z
 
-    def seg(x, ids, n):
-        return torch.zeros((n,) + x.shape[1:], dtype=x.dtype,
-                           device=dev).index_add_(0, ids, x)
-
     def block_diag(blocks):                      # [P, 6, 6] -> [P, 6, P, 6]
         D = torch.zeros(P, 6, P, 6, dtype=f32, device=dev)
         D[diag, :, diag, :] = blocks
@@ -218,14 +228,16 @@ def local_bundle_adjustment(kf_R, kf_t, fixed, points, pt_valid,
              * _huber_weight(c2, th_obs))
         Aw = A * w[:, None, None]
         Bw = B * w[:, None, None]
-        U = seg(Aw.transpose(1, 2) @ A, obs_p, P)
-        V = seg(Bw.transpose(1, 2) @ B, obs_l, L)
+        U = segment_sum(Aw.transpose(1, 2) @ A, obs_p, P)
+        V = segment_sum(Bw.transpose(1, 2) @ B, obs_l, L)
         Wb = Aw.transpose(1, 2) @ B                               # [O, 6, 3]
-        bp = -seg((Aw.transpose(1, 2) @ r[..., None])[..., 0], obs_p, P)
-        bl = -seg((Bw.transpose(1, 2) @ r[..., None])[..., 0], obs_l, L)
+        bp = -segment_sum((Aw.transpose(1, 2) @ r[..., None])[..., 0],
+                          obs_p, P)
+        bl = -segment_sum((Bw.transpose(1, 2) @ r[..., None])[..., 0],
+                          obs_l, L)
 
         Vinv = torch.linalg.inv_ex(V + lam * eye3[None]).inverse
-        M = seg(Wb, obs_l * P + obs_p, L * P).reshape(L, P, 6, 3)
+        M = segment_sum(Wb, obs_l * P + obs_p, L * P).reshape(L, P, 6, 3)
         T_ = torch.einsum("lpik,lkm->lpim", M, Vinv)              # [L,P,6,3]
         S = -torch.einsum("lpim,lqjm->piqj", T_, M)               # [P,6,P,6]
         S = S + block_diag(U + lam * eye6[None])

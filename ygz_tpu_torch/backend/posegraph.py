@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry.sim3 import sim3_exp, sim3_inv, sim3_log, sim3_mul
-from .optim import solve_preconditioned
+from .optim import segment_sum, solve_preconditioned
 
 
 class PoseGraphResult(NamedTuple):
@@ -100,14 +100,12 @@ def optimize_pose_graph(R, t, s, edge_i, edge_j, eR, et, es, edge_w,
     for _ in range(iters):
         Hii, Hjj, Hij, bi, bj, chi2 = _normal_blocks(R, t, s, ei, ej, eR, et,
                                                      es, edge_w)
-        flat = torch.zeros(K * K, 7, 7, dtype=R.dtype, device=dev)
-        flat.index_add_(0, ei * K + ei, Hii)
-        flat.index_add_(0, ej * K + ej, Hjj)
-        flat.index_add_(0, ei * K + ej, Hij)
-        flat.index_add_(0, ej * K + ei, Hij.transpose(1, 2))
+        flat = segment_sum(
+            torch.cat([Hii, Hjj, Hij, Hij.transpose(1, 2)]),
+            torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]),
+            K * K)
         H = flat.reshape(K, K, 7, 7).permute(0, 2, 1, 3)
-        b = torch.zeros(K, 7, dtype=R.dtype, device=dev)
-        b.index_add_(0, ei, bi).index_add_(0, ej, bj)
+        b = segment_sum(torch.cat([bi, bj]), torch.cat([ei, ej]), K)
         H = H * fm[:, :, None, None] * fm[None, None, :, :]
         H[diag, :, diag, :] += (eye7[None] * (1.0 - free)[:, None, None]
                                 + damping * eye7[None])
@@ -133,8 +131,7 @@ def optimize_pose_graph_cg(R, t, s, edge_i, edge_j, eR, et, es, edge_w,
     chi2 = torch.zeros((), dtype=R.dtype, device=dev)
 
     def scatter(idx, x):
-        return torch.zeros((K,) + x.shape[1:], dtype=x.dtype,
-                           device=dev).index_add_(0, idx, x)
+        return segment_sum(x, idx, K)
 
     for _ in range(iters):
         Hii, Hjj, Hij, bi, bj, chi2 = _normal_blocks(R, t, s, ei, ej, eR, et,

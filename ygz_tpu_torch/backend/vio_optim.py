@@ -19,7 +19,7 @@ and prior rows come from one reverse-mode pass per Gauss-Newton step over
 copies of the residual, one copy per row (``_jac_rows``), where the JAX
 package takes ``jax.jacfwd``: forward mode costs seconds at its first use
 on CUDA. ``fori_loop``/``scan`` become Python loops with the same fixed
-iteration counts; ``segment_sum`` becomes ``index_add_``. Cholesky,
+iteration counts; ``segment_sum`` becomes ``optim.segment_sum``. Cholesky,
 inverse and solve take their ``_ex`` forms: a matrix they cannot factor
 gives NaN, as in JAX, instead of an exception.
 
@@ -41,7 +41,8 @@ import torch
 from ..geometry.lie import hat, so3_exp, so3_log_safe
 from ..geometry.sim3 import eigh_finite
 from ..imu.preintegration import ACC_BIAS_RW2, GYR_BIAS_RW2, PreintState
-from .optim import CHI2_MONO, _huber_weight, solve_preconditioned
+from .optim import (CHI2_MONO, _huber_weight, segment_sum,
+                    solve_preconditioned)
 
 HUBER2_PVR = 21.666    # 0.99 chi2, 9 DoF
 HUBER2_BIAS = 16.812   # 6 DoF
@@ -440,10 +441,6 @@ def vio_window_ba(P, V, R, bg, ba, fixed,
     eye15 = torch.eye(15, device=dev)
     diag = torch.arange(W, device=dev)
 
-    def seg(x, ids, n):
-        return torch.zeros((n,) + x.shape[1:], dtype=x.dtype,
-                           device=dev).index_add_(0, ids, x)
-
     def block_diag(blocks):                     # [W, 15, 15] -> [W, 15, W, 15]
         D = torch.zeros(W, 15, W, 15, dtype=f32, device=dev)
         D[diag, :, diag, :] = blocks
@@ -496,12 +493,14 @@ def vio_window_ba(P, V, R, bg, ba, fixed,
         # normal equations: pose system [W, 15] + landmarks [L, 3]
         Aw = A * w[:, None, None]
         Bw = B * w[:, None, None]
-        U = seg(Aw.transpose(1, 2) @ A, obs_k, W)
-        Vl = seg(Bw.transpose(1, 2) @ B, obs_l, L) + lam * eye3
+        U = segment_sum(Aw.transpose(1, 2) @ A, obs_k, W)
+        Vl = segment_sum(Bw.transpose(1, 2) @ B, obs_l, L) + lam * eye3
         Wb = Aw.transpose(1, 2) @ B                           # [O, 15, 3]
-        bp = -seg((Aw.transpose(1, 2) @ r_uv[..., None])[..., 0], obs_k, W)
-        bl = -seg((Bw.transpose(1, 2) @ r_uv[..., None])[..., 0], obs_l, L)
-        M = seg(Wb, obs_l * W + obs_k, L * W).reshape(L, W, 15, 3)
+        bp = -segment_sum((Aw.transpose(1, 2) @ r_uv[..., None])[..., 0],
+                          obs_k, W)
+        bl = -segment_sum((Bw.transpose(1, 2) @ r_uv[..., None])[..., 0],
+                          obs_l, L)
+        M = segment_sum(Wb, obs_l * W + obs_k, L * W).reshape(L, W, 15, 3)
         Vinv = torch.linalg.inv_ex(Vl).inverse
         T_ = torch.einsum("lpik,lkm->lpim", M, Vinv)
         S = -torch.einsum("lpim,lqjm->piqj", T_, M)

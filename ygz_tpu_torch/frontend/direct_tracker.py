@@ -13,6 +13,7 @@ patch, the same interpolation within float32 rounding.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -126,21 +127,30 @@ def _warp_setup(h0, w0, R_pred, t_pred, pt_xyz, pt_valid, pt_patch,
     return visible, lvl, warped, inside.flatten(1).all(1)
 
 
+@functools.lru_cache(maxsize=None)
+def _level_table(h0: int, w0: int, n_levels: int, device: torch.device):
+    """[3, n_levels] int32 table of a stacked pyramid's levels (row offset,
+    height, width) on `device`, made once per shape: the frame step is
+    replayed as a CUDA graph, and a capture cannot copy from host memory."""
+    offs, _ = stack_rows(h0, w0, n_levels)
+    shapes = pyramid_shapes(h0, w0, n_levels)
+    table = torch.tensor([offs, [h for h, _ in shapes],
+                          [w for _, w in shapes]], dtype=torch.int32,
+                         device=device)
+    if table.is_cuda:
+        # kernels on other streams read it: let the copy land first
+        torch.cuda.current_stream(device).synchronize()
+    return table
+
+
 def _make_align_all(stack, h0, pt_xyz, pt_valid, warped, warp_ok, lvl, intr,
                     n_levels: int):
     """Closure aligning ALL points at their own search level against a pose
     (R_c, t_c): project, one stacked-pyramid batched KLT. Returns
     (uv level-0 [N, 2], ok [N])."""
     w0 = stack.shape[1]
-    dev = stack.device
-    offs, _ = stack_rows(h0, w0, n_levels)
-    shapes = pyramid_shapes(h0, w0, n_levels)
-    lv = lvl.long()
-    row_off = torch.tensor(offs, dtype=torch.int32, device=dev)[lv]
-    h_l = torch.tensor([s[0] for s in shapes], dtype=torch.int32,
-                       device=dev)[lv]
-    w_l = torch.tensor([s[1] for s in shapes], dtype=torch.int32,
-                       device=dev)[lv]
+    row_off, h_l, w_l = _level_table(h0, w0, n_levels,
+                                     stack.device)[:, lvl.long()]
     scale = (0.5 ** lvl.to(torch.float32))[:, None]
 
     def align_all(R_c, t_c):

@@ -48,7 +48,7 @@ class OrbExtractor:
         if mode != "grid":
             raise NotImplementedError(
                 "keypoint_mode='octree' (select_octree) is not ported yet: "
-                "ROADMAP queue A, item 19 (periphery)")
+                "ROADMAP queue A, item A3")
         self.n_features = n_features
         self.n_levels = n_levels
         self.scale_factor = scale_factor

@@ -1,10 +1,13 @@
 """Fused per-frame tracking step over device-resident carry state.
 
-Port of ``ygz_tpu/frontend/framestep.py`` (``frame_step``; the microbatched
-``frame_step_batch`` is not ported yet). One call per frame: pyramid build
-(+ optional undistort remap), sparse alignment against the last frame,
-direct local-map tracking, velocity update. The packed layouts are the JAX
-package's, entry for entry:
+Port of ``ygz_tpu/frontend/framestep.py``: ``frame_step`` (one frame) and
+``frame_step_batch`` (B frames chained through the carry). One call per
+frame: pyramid build (+ optional undistort remap), sparse alignment against
+the last frame, direct local-map tracking, velocity update. On the card the
+tracker replays ``frame_step`` as a captured CUDA graph
+(``framestep_graph.FrameStepGraph``, the port's counterpart of the JAX
+``jit``); the eager function is the CPU path and the replay's yardstick.
+The packed layouts are the JAX package's, entry for entry:
 
   carry: pyr [SH, W] stacked | state [24] (R 9 | t 3 | Rv 9 | tv 3) |
          pts [cap, 6] (uv 2 | Xc 3 | valid 1)
@@ -170,6 +173,42 @@ def frame_step(img, carry: FrameCarry, cache, pred, remap_grid, intr,
         dres.tracked.to(f32), dres.visible.to(f32), dres.uv.reshape(-1),
         dres.level.to(f32)])
     return new_carry, packed
+
+
+def frame_step_batch(imgs, carry: FrameCarry, cache, remap_grid, intr,
+                     n_levels: int = 4, scale_factor: float = 2.0,
+                     min_align: int = 30, align_iters: int = 10,
+                     graph=None, out=None):
+    """B consecutive frames imgs [B, H, W] chained through the carry, each
+    with the velocity model (no external prediction).
+
+    CPU tensors run ``frame_step`` B times. CUDA tensors replay ``graph``
+    (the caller's ``FrameStepGraph`` for these shapes; required there) B
+    times: the returned carry is then the graph's static carry, which its
+    next replay overwrites. ``out``: optional (outs, pyrs) tensors to write
+    into. Returns (new_carry, outs [B, N_SCALARS + 5 * cap], pyrs [B, SH, W]
+    the frames' stacked pyramids)."""
+    if imgs.device.type == "cuda":
+        if graph is None:
+            raise ValueError("frame_step_batch on CUDA tensors replays a "
+                             "captured FrameStepGraph: pass graph=")
+        return graph.run_batch(imgs, carry, cache, out=out)
+    no_pred = torch.as_tensor(pack_pred_np(), device=imgs.device)
+    outs, pyrs = [], []
+    for img in imgs:
+        carry, packed = frame_step(img, carry, cache, no_pred, remap_grid,
+                                   intr, n_levels=n_levels,
+                                   scale_factor=scale_factor,
+                                   min_align=min_align,
+                                   align_iters=align_iters)
+        outs.append(packed)
+        pyrs.append(carry.pyr)
+    outs, pyrs = torch.stack(outs), torch.stack(pyrs)
+    if out is not None:
+        out[0].copy_(outs)
+        out[1].copy_(pyrs)
+        outs, pyrs = out
+    return carry, outs, pyrs
 
 
 def unpack_out(vec, cap: int) -> FrameOut:

@@ -5,8 +5,12 @@ main path), and ``RgbdTracker`` and ``StereoTracker``, which initialize
 from one frame and seed metric map points from depth at every keyframe.
 MonoTracker: initialize (ORB + two-view) -> per frame the fused step
 (sparse alignment seeded by the last frame, direct local-map tracking with a
-point cache, pose GN) -> keyframe decision -> synchronous mapping tail
-(triangulation, fusion, local BA, culling, patch refresh). When direct
+point cache, pose GN) -> keyframe decision -> mapping tail (triangulation,
+fusion, local BA, culling, patch refresh), inline or, with
+``async_mapping``, on a worker thread with its own CUDA stream. On the card
+the frame step is replayed as a captured CUDA graph
+(``framestep_graph.FrameStepGraph``). ``track_batch`` tracks chunks of
+``track_batch`` frames with ``pipeline_depth`` chunks in flight. When direct
 tracking fails, the feature fallback ladder (motion model -> reference KF
 -> feature local map) runs before the tracker declares itself LOST; a LOST
 tracker relocalizes through BoW candidates and EPnP RANSAC. Each keyframe
@@ -19,14 +23,17 @@ The sensor-fusion hooks of the JAX tracker (``_predict_pose``,
 no-op defaults here; the mono-VI subclass (``frontend/vi_tracker.py``)
 overrides them.
 
-Not ported yet (ROADMAP queue A): the async mapping worker (and with it
-the stereo/RGB-D close-point term of the keyframe decision),
-``track_batch``, the octree keypoint mode and multi-device BA.
+Not ported yet (ROADMAP queue A): the octree keypoint mode (A3) and the
+distributed BA (A8).
 """
 from __future__ import annotations
 
 import enum
+import itertools
 import os
+import queue
+import threading
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -47,8 +54,9 @@ from ..ops.image import level0
 from ..ops.stereo import stereo_match_features
 from ..utils.profiling import StageTimer
 from .extractor import OrbExtractor
-from .framestep import (build_pyramid_stacked, frame_step, make_carry,
-                        pack_cache_np, pack_pred_np, unpack_out)
+from .framestep import (build_pyramid_stacked, frame_step, frame_step_batch,
+                        make_carry, pack_cache_np, pack_pred_np, unpack_out)
+from .framestep_graph import FrameStepGraph
 
 
 def _depth_at(depth, uv):
@@ -61,6 +69,58 @@ def _depth_at(depth, uv):
     return depth[yi, xi]
 
 
+def _once(fn):
+    """A function returning fn()'s result, computed at the first call."""
+    box = []
+
+    def get():
+        if not box:
+            box.append(fn())
+        return box[0]
+    return get
+
+
+class _ChunkSlot:
+    """The buffers of one track_batch chunk in flight on the card: its
+    frames in pinned host memory and on the card, its packed outputs and
+    stacked pyramids on the card, the outputs' pinned readback, and the
+    events that order their reuse. The graph's static buffers are
+    overwritten by every replay; a slot holds one chunk's copies."""
+
+    def __init__(self, B, graph: FrameStepGraph, dtype):
+        dev = graph.device
+        H, W = graph.img.shape
+        self.host_imgs = torch.empty((B, H, W), dtype=dtype, pin_memory=True)
+        self.imgs = torch.empty((B, H, W), dtype=dtype, device=dev)
+        self.outs = torch.empty((B, graph.out.numel()), device=dev)
+        self.pyrs = torch.empty((B,) + tuple(graph.carry.pyr.shape),
+                                device=dev)
+        self.host_outs = torch.empty(tuple(self.outs.shape), pin_memory=True)
+        self.uploaded = torch.cuda.Event()
+        self.done = torch.cuda.Event()
+
+    def stage(self, frames):
+        """The chunk's frames through pinned memory in one non-blocking
+        copy, once this slot's previous upload has left the buffer."""
+        self.uploaded.synchronize()
+        host = self.host_imgs.numpy()
+        for b, f in enumerate(frames):
+            host[b] = f
+        self.imgs.copy_(self.host_imgs, non_blocking=True)
+        self.uploaded.record()
+
+    def read_back(self):
+        """Queue the outputs' readback; returns a function that waits for it
+        and gives a numpy copy (the pinned buffer is reused)."""
+        self.host_outs.copy_(self.outs, non_blocking=True)
+        self.done.record()
+
+        def get():
+            self.done.synchronize()
+            return self.host_outs.numpy().copy()
+        return get
+
+
 class State(enum.Enum):
     NOT_INITIALIZED = 0
     OK = 1
@@ -70,8 +130,8 @@ class State(enum.Enum):
 @dataclass
 class TrackerConfig:
     """The JAX package's tracker settings, with its defaults. The port
-    rejects (NotImplementedError) keypoint_mode 'octree', mesh_devices > 1
-    and async_mapping; track_batch is accepted and unused."""
+    rejects (NotImplementedError) keypoint_mode 'octree' and
+    mesh_devices > 1."""
     n_features: int = 512
     keypoint_mode: str = "grid"
     n_levels: int = 4
@@ -96,17 +156,23 @@ class TrackerConfig:
     # k=10 L=5, 99,478 words) when present, else trained in-system on the
     # init descriptors; a path loads that file; None forces training
     vocab_path: Optional[str] = "auto"
+    # the mapping tail on a worker thread (the reference's LocalMapping
+    # thread): tracking returns the pre-BA pose of a keyframe, and BA
+    # corrections land through the shared map under a lock
     async_mapping: bool = False
+    # track_batch: B consecutive frames per chunk. 1 = per-frame
     track_batch: int = 8
+    # chunks track_batch keeps in flight: chunk N+1 is dispatched against
+    # the snapshot that held before chunk N's keyframes were consumed, so
+    # keyframe/mapping effects lag up to (pipeline_depth - 1) more chunks
+    pipeline_depth: int = 2
     mesh_devices: int = 0
 
     def check_supported(self):
         unsupported = {
             "keypoint_mode": (self.keypoint_mode != "grid",
-                              "19 (periphery: select_octree)"),
-            "mesh_devices": (self.mesh_devices > 1, "20 (distributed BA)"),
-            "async_mapping": (self.async_mapping,
-                              "19 (periphery: the async mapping worker)"),
+                              "A3 (the octree keypoint mode)"),
+            "mesh_devices": (self.mesh_devices > 1, "A8 (distributed BA)"),
         }
         for name, (bad, item) in unsupported.items():
             if bad:
@@ -158,7 +224,10 @@ class MonoTracker:
         self._last_t = None
         self._vel = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
         self._cache = np.zeros(0, np.int64)   # map point ids in the cache
-        self._snap = None     # (ids, device cache, ref kf, Rk, tk, xyz)
+        # (ids, device cache, ref kf, Rk, tk, xyz, ready event, published
+        # by the worker)
+        self._snap = None
+        self._snap_used = None   # the snapshot the last frame tracked
         self._carry = None    # framestep.FrameCarry on the device
         self._no_pred = torch.as_tensor(pack_pred_np(), device=self.device)
         self.debug = {}
@@ -180,19 +249,103 @@ class MonoTracker:
         # localization-only: track against the frozen map, no KFs/mapping
         # (reference ActivateLocalizationMode)
         self.localization_only = False
+        # the captured frame step (CUDA only; made at the first tracked
+        # frame) and track_batch's staging slots, kept across reset()
+        self._graph: Optional[FrameStepGraph] = None
+        self._slots = None
+
+        # async mapping (the reference's LocalMapping thread). The lock
+        # guards the map's arrays; the mapping tail holds it while it
+        # mutates the map, and the tracking thread for the map reads of its
+        # rare paths (cache refill, fallback, relocalization). The worker
+        # runs each job on its own CUDA stream.
+        self._map_lock = threading.RLock()
+        self._map_queue: queue.Queue = queue.Queue()
+        self._map_worker = None
+        self._map_worker_error = None
+        self._map_stream = None
+        if self.cfg.async_mapping:
+            if self.device.type == "cuda":
+                self._map_stream = torch.cuda.Stream(self.device)
+            self._map_worker = threading.Thread(
+                target=self._mapping_worker, daemon=True,
+                name="ygz-mapping")
+            self._map_worker.start()
+
+    def _mapping_worker(self):
+        # bind the queue and the stream once: reset() swaps in fresh ones
+        # while this (old) thread may still be draining its jobs
+        q = self._map_queue
+        stream = self._map_stream
+        while True:
+            job = q.get()
+            if job is None:
+                q.task_done()
+                return
+            try:
+                if stream is None:
+                    job()
+                else:
+                    with torch.cuda.stream(stream):
+                        job()
+            except Exception as e:   # surfaced by wait_mapping_idle
+                self._map_worker_error = e
+            finally:
+                q.task_done()
+
+    def wait_mapping_idle(self):
+        """Block until the mapping queue drains; raise the worker's error,
+        if a job failed."""
+        self._map_queue.join()
+        if self._map_worker_error is not None:
+            err = self._map_worker_error
+            self._map_worker_error = None
+            raise err
+
+    def _tail_idle(self) -> bool:
+        """True when no mapping-tail work is queued or in flight."""
+        return (self._map_worker is None
+                or self._map_queue.unfinished_tasks == 0)
+
+    def _join_mapper(self):
+        """Order this thread's stream after the mapping stream's work, before
+        it reads device tensors the worker made (keyframe feature mirrors).
+        Called with the map lock held."""
+        if self._map_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._map_stream)
+
+    def _record_event(self):
+        """A CUDA event recorded on this thread's current stream (None on
+        the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
 
     def reset(self, keep_trajectory: bool = True):
-        """Clear map and tracking state (reference Tracking::Reset)."""
-        traj = self.trajectory if keep_trajectory else []
-        # bake relative-pose records to absolute against the dying map
-        for rec in traj:
-            if rec.ref_kf >= 0:
-                rec.R, rec.t = self.recovered_pose(rec)
-                rec.ref_kf, rec.R_r, rec.t_r = -1, None, None
-        fid = self.frame_id
+        """Clear map and tracking state (reference Tracking::Reset). Jobs
+        queued against the old map drop themselves; one in flight finishes
+        first (the map lock); the old worker stops after its queue."""
+        with self._map_lock:
+            traj = self.trajectory if keep_trajectory else []
+            # bake relative-pose records to absolute against the dying map
+            for rec in traj:
+                if rec.ref_kf >= 0:
+                    rec.R, rec.t = self.recovered_pose(rec)
+                    rec.ref_kf, rec.R_r, rec.t_r = -1, None, None
+            fid = self.frame_id
+            if self._map_worker is not None:
+                self._map_queue.put(None)
+            keep = (self._map_lock, self._graph, self._slots)
+            self._reinit()
+            self._map_lock, self._graph, self._slots = keep
+            self.trajectory = traj
+            self.frame_id = fid
+
+    def _reinit(self):
         self.__init__(self.cam, self.cfg, self.device)
-        self.trajectory = traj
-        self.frame_id = fid
 
     # ------------------------------------------------------------------ utils
     def _t(self, a, dtype=None):
@@ -263,7 +416,8 @@ class MonoTracker:
         KFs)."""
         if rec.ref_kf < 0 or rec.R_r is None:
             return rec.R, rec.t
-        Rk, tk = self.map.resolve_pose(rec.ref_kf)
+        with self._map_lock:
+            Rk, tk = self.map.resolve_pose(rec.ref_kf)
         return rec.R_r @ Rk, rec.R_r @ tk + rec.t_r
 
     def _build_vocabulary(self, desc, doc_ids=None):
@@ -369,29 +523,200 @@ class MonoTracker:
         self._vel = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
 
     # ------------------------------------------------------------- main track
-    def _track_frame(self, img, ts):
-        """Steady-state frame: one fused frame step on the device and ONE
-        readback of its packed output."""
-        cfg = self.cfg
-        if len(self._snap[0]) < cfg.cache_refill_below:
-            self._rebuild_cache()
+    def _frame_graph(self) -> FrameStepGraph:
+        """The frame step captured for this tracker's shapes (CUDA only),
+        made at the first tracked frame and kept across reset()."""
+        if self._graph is None:
+            cfg = self.cfg
+            self._graph = FrameStepGraph(
+                self.cam.height, self.cam.width, cfg.max_track, self.intr,
+                n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+                min_align=cfg.min_align_points, remap_grid=self._remap,
+                device=self.device)
+        return self._graph
+
+    def _snap_cache(self, snap):
+        """The snapshot's device cache, ready on this thread's stream: a
+        snapshot the worker published on the mapping stream is waited for,
+        and its memory kept until this stream is done with it."""
+        dev, ready = snap[1], snap[6]
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            dev.record_stream(stream)
+        return dev
+
+    def _tracking_snapshot(self):
+        """The snapshot the next frame step tracks against: a thin cache is
+        rebuilt first while the mapper is idle (so tracking never waits on
+        the tail); the first use of one the worker published calls
+        _on_map_corrected."""
+        if (len(self._snap[0]) < self.cfg.cache_refill_below
+                and self._tail_idle()):
+            with self._map_lock:
+                self._join_mapper()
+                self._rebuild_cache()
         snap = self._snap
-        ids, dev = snap[0], snap[1]
+        if snap[7] and snap is not self._snap_used:
+            self._on_map_corrected()
+        self._snap_used = snap
+        return snap
+
+    def _track_frame(self, img, ts):
+        """Steady-state frame: one fused frame step on the device (a graph
+        replay on the card) and ONE readback of its packed output."""
+        cfg = self.cfg
         # external pose prediction (mono-VI: IMU propagation); the step
         # falls back to its on-device velocity model otherwise
         pred = self._predict_pose()
         pred_vec = self._no_pred if pred is None else \
             self._t(pack_pred_np(pred[0], pred[1], True))
+        snap = self._tracking_snapshot()
+        ids = snap[0]
         with self.timer.stage("frame_step"):
-            self._carry, out = frame_step(
-                self._t(img), self._carry, dev, pred_vec, self._remap,
-                self.intr, n_levels=cfg.n_levels,
-                scale_factor=cfg.scale_factor, min_align=cfg.min_align_points)
-            out = unpack_out(out.cpu().numpy(), cfg.max_track)
-        return self._consume_out(out, ids, ts, snap_xyz=snap[5])
+            dev = self._snap_cache(snap)
+            if self.device.type == "cuda":
+                graph = self._frame_graph()
+                graph.load(self._carry, dev, pred_vec)
+                packed = graph.step(torch.from_numpy(np.ascontiguousarray(
+                    img)))
+                self._carry = graph.carry
+                pyr_fn = _once(graph.carry.pyr.clone)
+            else:
+                self._carry, packed = frame_step(
+                    self._t(img), self._carry, dev, pred_vec, self._remap,
+                    self.intr, n_levels=cfg.n_levels,
+                    scale_factor=cfg.scale_factor,
+                    min_align=cfg.min_align_points)
+                pyr = self._carry.pyr
+                pyr_fn = lambda: pyr  # noqa: E731
+            out = unpack_out(packed.cpu().numpy(), cfg.max_track)
+        ok, R, t, _ = self._consume_out(out, ids, ts, pyr_fn,
+                                        snap_xyz=snap[5])
+        return ok, R, t
 
-    def _consume_out(self, out, ids, ts, snap_xyz=None):
-        """Host bookkeeping for one frame's readback. Returns (ok, R, t)."""
+    # ----------------------------------------------------------- batch track
+    def track_batch(self, imgs, timestamps):
+        """Track consecutive frames in chunks of cfg.track_batch with
+        cfg.pipeline_depth chunks in flight. A chunk is B frame steps
+        chained through the device carry (frame_step_batch; B graph replays
+        on the card), staged through pinned memory in one copy and read
+        back in one; chunk N+1 depends only on the carry and a cache
+        snapshot, so it is dispatched before chunk N is consumed.
+        Keyframe/mapping effects lag up to B - 1 frames in a chunk plus up
+        to pipeline_depth - 1 chunks of snapshot (the reference's async
+        LocalMapping shows the same lag); with the async worker a chunk
+        tracks the snapshot its last published tail left. Bootstrap, LOST,
+        predictor and short-remainder frames take the per-frame path; after
+        a failure inside a chunk its remaining frames re-run per frame and
+        the chunks dispatched after it are discarded unread.
+
+        Returns a list of (state, R, t) per frame."""
+        cfg = self.cfg
+        B = cfg.track_batch
+        depth = max(1, cfg.pipeline_depth)
+        results = []
+        i = 0                  # first frame not yet consumed
+        next_i = 0             # first frame not yet dispatched
+        n_total = len(imgs)
+        inflight = []          # [(i0, snap, outs_fn, pyrs)], oldest first
+
+        def can_batch(j):
+            # the state and the predictor are read at dispatch time: with
+            # chunks in flight this speculates that they stay unchanged
+            # (clean consumption leaves both; aborts discard speculation)
+            return (self.state == State.OK and B > 1 and n_total - j >= B
+                    and self._predict_pose() is None)
+
+        def dispatch(j):
+            snap = self._tracking_snapshot()
+            t0 = time.perf_counter()
+            outs_fn, pyrs = self._dispatch_chunk(imgs[j: j + B], snap)
+            self.timer.total["frame_step"] += time.perf_counter() - t0
+            return (j, snap, outs_fn, pyrs)
+
+        while i < n_total or inflight:
+            while len(inflight) < depth and can_batch(next_i):
+                inflight.append(dispatch(next_i))
+                next_i += B
+            if not inflight:
+                results.append(self.track(imgs[i], timestamps[i]))
+                i += 1
+                next_i = i
+                continue
+
+            i0, snap, outs_fn, pyrs = inflight.pop(0)
+            t0 = time.perf_counter()
+            outs = outs_fn()          # ONE [B, packed] readback
+            self.timer.total["frame_step"] += time.perf_counter() - t0
+            self.timer.count["frame_step"] += B
+            consumed, clean = 0, True
+            for b in range(B):
+                self.frame_id += 1
+                self._cur_depth = None
+                out_b = unpack_out(outs[b], cfg.max_track)
+                ok, R, t, clean = self._consume_out(
+                    out_b, snap[0], timestamps[i0 + b],
+                    _once(pyrs[b].clone), batch_mode=True,
+                    snap_xyz=snap[5])
+                self._log(timestamps[i0 + b], R, t)
+                results.append((self.state, R, t))
+                consumed += 1
+                if not clean:
+                    # a fallback or a loss invalidated the rest of the
+                    # chunk: its remaining frames re-run per frame
+                    break
+            i = i0 + consumed
+            if not clean:
+                # the host rewrote the carry (fallback / reloc / reset),
+                # even on the chunk's last frame: the chunks chained from
+                # the old device carry are discarded unread
+                inflight.clear()
+                next_i = i
+        return results
+
+    def _dispatch_chunk(self, frames, snap):
+        """Queue B frame steps from the current carry against `snap`.
+        Returns (a function giving the [B, packed] numpy outputs, the
+        frames' stacked pyramids [B, SH, W])."""
+        cfg = self.cfg
+        kw = dict(n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+                  min_align=cfg.min_align_points)
+        dev = self._snap_cache(snap)
+        if self.device.type != "cuda":
+            imgs = self._t(np.stack([np.asarray(f) for f in frames]))
+            self._carry, outs, pyrs = frame_step_batch(
+                imgs, self._carry, dev, self._remap, self.intr, **kw)
+            return outs.numpy, pyrs
+        slot = self._batch_slot(len(frames), frames[0])
+        slot.stage(frames)
+        self._carry, _, pyrs = frame_step_batch(
+            slot.imgs, self._carry, dev, self._remap, self.intr,
+            graph=self._frame_graph(), out=(slot.outs, slot.pyrs), **kw)
+        return slot.read_back(), pyrs
+
+    def _batch_slot(self, B, frame):
+        """The next of pipeline_depth rotating staging slots (pinned frames,
+        device frames, outputs, pyramids); a chunk in flight owns one."""
+        graph = self._frame_graph()
+        # uint8 frames are staged as uint8, any other as float32 (the frame
+        # step casts to float32 first)
+        dtype = torch.uint8 if np.asarray(frame).dtype == np.uint8 \
+            else torch.float32
+        if self._slots is None or self._slots[0] != (B, dtype):
+            n = max(1, self.cfg.pipeline_depth)
+            self._slots = ((B, dtype), itertools.cycle(
+                [_ChunkSlot(B, graph, dtype) for _ in range(n)]))
+        return next(self._slots[1])
+
+    def _consume_out(self, out, ids, ts, pyr_fn, batch_mode: bool = False,
+                     snap_xyz=None):
+        """Host bookkeeping for one frame's readback. `pyr_fn` gives the
+        frame's stacked pyramid (a copy the caller may keep; only called on
+        keyframe / fallback frames). In batch mode a clean keyframe does
+        not rewrite the device carry (the later frames of the chunk already
+        tracked past it; BA corrections flow through the map). Returns (ok,
+        R, t, clean), clean False when the rest of a chunk must re-run."""
         cfg = self.cfg
         smap = self.map
         n = len(ids)
@@ -411,25 +736,34 @@ class MonoTracker:
         # world positions of the tracked points as the snapshot held them
         t_xyz = snap_xyz[:n][tracked] if snap_xyz is not None else None
         R_cur, t_cur = out.R, out.t
-        pyr = self._carry.pyr          # this frame's stacked pyramid
 
         recovered = False  # host changed the pose -> carry must be rewritten
+        aborted = False    # batch mode: the later frames are invalid
         if n_inliers < cfg.min_track_inliers:
+            pyr = pyr_fn()
+            aborted = True
             # feature fallback ladder (reference Tracking.cc:563-577)
             fb = self._feature_fallback(pyr, out.R_pred, out.t_pred)
-            if fb is None and self._on_vision_failed(pyr, ts, out.R_pred,
-                                                     out.t_pred):
+            if fb is not None:
+                R_cur, t_cur, t_ids, t_uv, t_lvl = fb
+                t_xyz = None   # fallback matches are not snapshot-aligned
+                n_inliers = len(t_ids)
+                recovered = True
+                self.debug["n_inliers_feat"] = n_inliers
+                np.add.at(smap.pt_found, t_ids, 1)
+                np.add.at(smap.pt_visible, t_ids, 1)
+            elif self._on_vision_failed(pyr, ts, out.R_pred, out.t_pred):
                 # the IMU kept the state alive (vision-weak mode) — unless
                 # the subclass escalated to relocalization and recovered
                 # another pose, with the tracking state rebuilt there
                 rp = self._recovered_pose_override
                 if rp is not None:
                     self._recovered_pose_override = None
-                    return True, rp[0], rp[1]
+                    return True, rp[0], rp[1], False
                 self._set_last_frame(pyr, out.R_pred, out.t_pred,
                                      cache_uv=None)
-                return True, out.R_pred, out.t_pred
-            if fb is None:
+                return True, out.R_pred, out.t_pred, False
+            else:
                 last_R, last_t = self._last_R, self._last_t
                 self.state = State.LOST
                 # reset-on-early-loss: a map of <= 5 KFs is not worth
@@ -437,14 +771,7 @@ class MonoTracker:
                 if smap.n_kf <= 5 and not self.localization_only:
                     self.reset()
                     self.state = State.NOT_INITIALIZED
-                return False, last_R, last_t
-            R_cur, t_cur, t_ids, t_uv, t_lvl = fb
-            t_xyz = None   # fallback matches are not snapshot-aligned
-            n_inliers = len(t_ids)
-            recovered = True
-            self.debug["n_inliers_feat"] = n_inliers
-            np.add.at(smap.pt_found, t_ids, 1)
-            np.add.at(smap.pt_visible, t_ids, 1)
+                return False, last_R, last_t, False
         # sensor fusion (mono-VI: the NavState optimization over the
         # tracked observations and the preintegration factor)
         fused = self._fuse_pose(R_cur, t_cur, t_ids, t_uv, t_lvl, xyz=t_xyz)
@@ -456,34 +783,81 @@ class MonoTracker:
         self._vel = (np.asarray(R_cur @ Rl_inv, np.float32),
                      np.asarray(t_cur - (R_cur @ Rl_inv) @ self._last_t,
                                 np.float32))
-        if self._need_new_keyframe(ts, n_inliers):
+        if self._need_new_keyframe(ts, n_inliers, t_ids, R_cur, t_cur):
             with self.timer.stage("keyframe"):
-                R_cur, t_cur = self._create_keyframe(pyr, ts, R_cur, t_cur,
-                                                     t_ids, t_uv, t_lvl)
+                R_cur, t_cur = self._create_keyframe(pyr_fn(), ts, R_cur,
+                                                     t_cur, t_ids, t_uv,
+                                                     t_lvl)
             recovered = True
-        if recovered:
-            self._set_last_frame(pyr, R_cur, t_cur, cache_uv=(t_ids, t_uv))
+        if recovered and (not batch_mode or aborted):
+            # the host changed the pose (fallback / fusion / keyframe BA):
+            # rebuild the device carry from host state
+            self._set_last_frame(pyr_fn(), R_cur, t_cur,
+                                 cache_uv=(t_ids, t_uv))
+        elif recovered:
+            # clean in-batch keyframe: the device carry keeps the
+            # uncorrected chain, so the host pose mirror keeps it too (the
+            # corrected pose still goes to the caller and the trajectory)
+            self._last_R = np.asarray(out.R, np.float32)
+            self._last_t = np.asarray(out.t, np.float32)
         else:
             # the carry already advanced on the device
             self._last_R = np.asarray(R_cur, np.float32)
             self._last_t = np.asarray(t_cur, np.float32)
-        return True, R_cur, t_cur
+        return True, R_cur, t_cur, not aborted
 
-    def _need_new_keyframe(self, ts, n_inliers) -> bool:
-        """Keyframe decision (reference NeedNewKeyFrame) for the synchronous
-        tracker: the mapper is always idle, so after the minimum gap a KF is
-        due at the hard cap, at the IMU time gap (mono-VI), or when tracking
-        weakens (c2)."""
+    def _need_new_keyframe(self, ts, n_inliers, t_ids, R_cur, t_cur) -> bool:
+        """Keyframe decision (reference NeedNewKeyFrame): c1a = long gap;
+        c1b = min gap AND mapper idle; c1c = weak tracking or close-point
+        starvation (stereo / RGB-D); c2 = tracked fraction below kf_ratio
+        of the reference KF. The IMU cTimeGap (> 0.5 s) comes from the
+        mono-VI subclass."""
         cfg = self.cfg
         if self.localization_only:
             return False
         gap = self.frame_id - self._last_kf_frame
         if gap < cfg.kf_min_gap:
             return False
-        if gap >= cfg.kf_max_gap or self._kf_time_gap(ts):
+        if gap >= cfg.kf_max_gap:               # c1a: hard cap
             return True
-        return (n_inliers < cfg.kf_ratio * self._kf_ref_tracked
-                or n_inliers < 50)
+        mapper_idle = self._tail_idle()
+        if self._kf_time_gap(ts) and mapper_idle:   # cTimeGap (VIO)
+            return True
+        c1b = mapper_idle
+        c1c = (n_inliers < 50
+               or self._need_close_points(t_ids, R_cur, t_cur))
+        c2 = (n_inliers < cfg.kf_ratio * self._kf_ref_tracked
+              or n_inliers < 50)
+        if not (c1b or c1c) or not c2:
+            return False
+        # queue limit: while the mapper is busy, only weak tracking justifies
+        # queueing another keyframe (the tail is one job deep)
+        return mapper_idle or n_inliers < 50
+
+    def _need_close_points(self, t_ids, R_cur, t_cur, min_close: int = 100,
+                           min_candidates: int = 70) -> bool:
+        """Stereo / RGB-D c1c term (reference Tracking.cc:1445-1460): few
+        tracked close points (z < ThDepth) AND enough close-depth candidates
+        that a new keyframe would seed some (estimated from the depth
+        source: the direct path extracts no features per frame)."""
+        if not self._depth_source_available() or len(t_ids) == 0:
+            return False
+        Xc = self.map.pt_xyz[t_ids] @ np.asarray(R_cur).T + np.asarray(t_cur)
+        if int((Xc[:, 2] < self._th_depth()).sum()) >= min_close:
+            return False
+        return self._close_candidates() >= min_candidates
+
+    def _close_candidates(self) -> int:
+        """Estimated feature-rate close-depth candidates in this frame:
+        RGB-D samples its depth map on a 16-px grid scaled to the feature
+        budget; stereo (no depth map) assumes they exist (the keyframe's
+        disparity search decides)."""
+        depth = self._cur_depth
+        if depth is None or not hasattr(depth, "shape"):
+            return 1 << 30
+        d = np.asarray(depth)[::16, ::16]
+        frac = float(((d > 0.1) & (d < self._th_depth())).mean())
+        return int(frac * self.cfg.n_features)
 
     def _set_last_frame(self, pyr, R, t, cache_uv):
         """Rebuild the device carry from host state (init / fallback /
@@ -529,7 +903,8 @@ class MonoTracker:
 
     def _upload_cache(self):
         """Pack the cached points' tracking state (CACHE_COLS layout) into
-        one device tensor and publish the snapshot."""
+        one device tensor and publish the snapshot. Called under the map
+        lock (or before the worker exists)."""
         smap = self.map
         ids = self._cache
         pad = self.cfg.max_track - len(ids)
@@ -547,8 +922,11 @@ class MonoTracker:
         self._publish_snapshot()
 
     def _publish_snapshot(self):
-        """Snapshot the frame step tracks against: cache ids, device cache,
-        reference KF and its pose."""
+        """Publish the snapshot the frame step tracks against (one attribute
+        write; the tracking thread reads it without the lock): cache ids,
+        device cache, reference KF and its pose, the cached points' world
+        positions, and an event after which the device cache is ready on
+        the publishing thread's stream (None on the CPU)."""
         smap = self.map
         ref = self._last_kf
         if 0 <= ref < smap.n_kf:
@@ -557,7 +935,8 @@ class MonoTracker:
             ref, Rk, tk = -1, np.eye(3, dtype=np.float32), \
                 np.zeros(3, np.float32)
         self._snap = (self._cache, self._cache_dev, ref, Rk, tk,
-                      self._cache_xyz_host)
+                      self._cache_xyz_host, self._record_event(),
+                      threading.current_thread() is self._map_worker)
 
     # ------------------------------------------------ feature-method fallbacks
     def _match_points_to_feats(self, pt_ids, R, t, f, radius, ratio=0.9,
@@ -637,7 +1016,8 @@ class MonoTracker:
                                  min_inliers: int = 10):
         """Window-match the cached points at the predicted pose; widen the
         window when matches are scarce or the consensus is weak."""
-        ids = self._cache.copy()
+        with self._map_lock:
+            ids = self._cache.copy()
         best_n, best_res = 0, None
         for radius in (15.0, 30.0):
             pt_ids, slots = self._match_points_to_feats(
@@ -681,29 +1061,34 @@ class MonoTracker:
         ratio) + pose opt from the last pose."""
         kf = self._last_kf
         smap = self.map
-        while kf >= 0 and not smap.kf_valid[kf]:
+        # the newest keyframe's descriptors are placeholders while the
+        # worker runs its deferred extraction: take the newest ready one
+        while kf >= 0 and (not smap.kf_valid[kf]
+                           or smap.kf_feat_pending[kf]):
             kf -= 1
         if kf < 0:
             return None
         g1 = self._kf_groups(kf)
         g2 = None if g1 is None else self._t(self._frame_groups(f))
-        bound = smap.kf_feat_pt[kf] >= 0
-        if int(bound.sum()) < min_matches:
-            return None
-        fK = self.mapper.kf_dev_feats(smap, kf)
-        idx, ok = matching.match_with_windows(
-            fK["desc"], self._t(bound), self._t(f["desc"]),
-            self._t(f["valid"]), max_dist=matching.TH_LOW, ratio=0.7,
-            ang1=fK["angle"], ang2=self._t(f["angle"]), mutual=True,
-            groups1=g1, groups2=g2)
-        idx = idx.cpu().numpy()
-        rows = np.nonzero(ok.cpu().numpy())[0]
-        if len(rows) < min_matches:
-            return None
-        pt_ids = smap.kf_feat_pt[kf, rows]
-        slots = idx[rows]
-        good = smap.pt_valid[pt_ids]
-        pt_ids, slots = pt_ids[good], slots[good]
+        with self._map_lock:
+            bound = smap.kf_feat_pt[kf] >= 0
+            if int(bound.sum()) < min_matches:
+                return None
+            self._join_mapper()
+            fK = self.mapper.kf_dev_feats(smap, kf)
+            idx, ok = matching.match_with_windows(
+                fK["desc"], self._t(bound), self._t(f["desc"]),
+                self._t(f["valid"]), max_dist=matching.TH_LOW, ratio=0.7,
+                ang1=fK["angle"], ang2=self._t(f["angle"]), mutual=True,
+                groups1=g1, groups2=g2)
+            idx = idx.cpu().numpy()
+            rows = np.nonzero(ok.cpu().numpy())[0]
+            if len(rows) < min_matches:
+                return None
+            pt_ids = smap.kf_feat_pt[kf, rows]
+            slots = idx[rows]
+            good = smap.pt_valid[pt_ids]
+            pt_ids, slots = pt_ids[good], slots[good]
         if len(pt_ids) < min_matches:
             return None
         res, _, _ = self._pose_opt_matches(pt_ids, slots, f, self._last_R,
@@ -716,8 +1101,10 @@ class MonoTracker:
         """Feature-method TrackLocalMap: project the local map with the
         recovered pose, window-match, final pose opt. Returns (R, t,
         pt_ids, uv, lvl) or None."""
-        self._rebuild_cache()
-        ids = self._cache.copy()
+        with self._map_lock:
+            self._join_mapper()
+            self._rebuild_cache()
+            ids = self._cache.copy()
         pt_ids, slots = self._match_points_to_feats(ids, R, t, f,
                                                     radius=8.0, ratio=0.8)
         if len(pt_ids) < self.cfg.min_track_inliers:
@@ -736,9 +1123,15 @@ class MonoTracker:
         """BoW candidates + EPnP RANSAC (reference Tracking::Relocalization):
         per candidate keyframe, node-gated matches -> PnP -> pose GN on the
         matches -> projection search over the candidate's local map until
-        >= 50 inliers."""
+        >= 50 inliers. Holds the map lock: it reads the index and the
+        keyframes the worker writes."""
         if self.bow_index is None:
             return False
+        with self._map_lock:
+            self._join_mapper()
+            return self._relocalize_locked(pyr)
+
+    def _relocalize_locked(self, pyr) -> bool:
         smap = self.map
         f = self._feats_to_dict(self.extractor(pyr))
         wid, bow = self.bow_index.quantize(f["desc"], f["valid"])
@@ -820,12 +1213,35 @@ class MonoTracker:
         feats["ur"] = self._feature_ur(feats, pyr)
         return feats
 
+    def _extract_into_kf(self, smap, kf, pyr, uv_pad, lvl_pad, val_pad):
+        """The worker's half of a deferred keyframe extraction: the full
+        feature set, written into the (already added) keyframe's rows
+        before its mapping tail, so triangulation, fusion and BoW see
+        complete descriptors. Dropped when reset() swapped the map."""
+        feats = self._extract_kf_features(pyr, uv_pad, lvl_pad, val_pad)
+        with self._map_lock:
+            if smap is not self.map or kf >= smap.n_kf:
+                return
+            mm = min(len(feats["uv"]), smap.max_feat)
+            smap.kf_feat_uv[kf, :mm] = feats["uv"][:mm]
+            smap.kf_feat_level[kf, :mm] = feats["level"][:mm]
+            smap.kf_feat_desc[kf, :mm] = feats["desc"][:mm]
+            smap.kf_feat_angle[kf, :mm] = feats["angle"][:mm]
+            smap.kf_feat_valid[kf, :mm] = feats["valid"][:mm]
+            smap.kf_feat_ur[kf, :mm] = feats["ur"][:mm]
+            smap.kf_feat_pending[kf] = False
+            smap.kf_feat_version[kf] += 1
+
     def _create_keyframe(self, pyr, ts, R, t, tracked_ids, tracked_uv,
                          tracked_lvl):
-        """Insert a keyframe, run the mapping tail, and return the KF's
-        post-BA pose."""
+        """Insert a keyframe and run its mapping tail: inline (returns the
+        KF's post-BA pose) or queued to the worker (returns its pre-BA
+        pose). With the worker, a monocular keyframe's extraction is
+        deferred to it too: the tracking thread records the skeleton (pose
+        and tracked binds) only."""
         smap = self.map
-        cap = self.cfg.max_track
+        cfg = self.cfg
+        cap = cfg.max_track
         m = min(len(tracked_ids), cap)
         uv_pad = np.zeros((cap, 2), np.float32)
         lvl_pad = np.zeros(cap, np.int32)
@@ -833,18 +1249,52 @@ class MonoTracker:
         uv_pad[:m] = tracked_uv[:m]
         lvl_pad[:m] = tracked_lvl[:m]
         val_pad[:m] = True
-        feats = self._extract_kf_features(pyr, uv_pad, lvl_pad, val_pad)
-        kf = smap.add_keyframe(R, t, feats, ts=ts, frame_id=self.frame_id,
-                               pyramid=pyr)
-        smap.bind(kf, np.arange(m), tracked_ids[:m])
-        if self._depth_source_available():
-            self._create_depth_points(smap, kf, pyr)
-        self._last_kf = kf
-        self._last_kf_frame = self.frame_id
-        self._kf_ref_tracked = int((smap.kf_feat_pt[kf] >= 0).sum())
-        self._publish_snapshot()
+        # depth-seeded modes extract inline (this frame's depth seeds the
+        # keyframe's points now)
+        defer = (self._map_worker is not None
+                 and not self._depth_source_available()
+                 and not self.localization_only)
+        if defer:
+            feats = {"uv": uv_pad, "level": lvl_pad, "valid": val_pad,
+                     "angle": np.zeros(cap, np.float32),
+                     "desc": np.zeros((cap, 256), np.uint8),
+                     "ur": np.full(cap, -1.0, np.float32)}
+        else:
+            feats = self._extract_kf_features(pyr, uv_pad, lvl_pad, val_pad)
+        with self._map_lock:
+            kf = smap.add_keyframe(R, t, feats, ts=ts,
+                                   frame_id=self.frame_id, pyramid=pyr)
+            # placeholder descriptor rows until the worker's extraction:
+            # matching against them fails silently, so consumers skip them
+            smap.kf_feat_pending[kf] = defer
+            smap.bind(kf, np.arange(m), tracked_ids[:m])
+            if self._depth_source_available():
+                self._create_depth_points(smap, kf, pyr)
+            self._last_kf = kf
+            self._last_kf_frame = self.frame_id
+            self._kf_ref_tracked = int((smap.kf_feat_pt[kf] >= 0).sum())
+            self._publish_snapshot()
+        # the mono-VI tracker records the keyframe's IMU window here, before
+        # the worker can see the keyframe
         self._on_keyframe_created(kf, ts)
-        self._mapping_tail(kf, pyr)
+        if self._map_worker is None:
+            self._mapping_tail(smap, kf, pyr)
+            return smap.kf_R[kf].copy(), smap.kf_t[kf].copy()
+        # the worker's stream starts after the keyframe's pyramid exists
+        ready = self._record_event()
+
+        def tail_job():
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                pyr.record_stream(stream)
+            if defer:
+                self._extract_into_kf(smap, kf, pyr, uv_pad, lvl_pad,
+                                      val_pad)
+            self._mapping_tail(smap, kf, pyr)
+
+        self._map_queue.put(tail_job)
+        # tracking keeps the pre-BA pose; corrections land through the map
         return smap.kf_R[kf].copy(), smap.kf_t[kf].copy()
 
     def stats(self) -> dict:
@@ -871,17 +1321,25 @@ class MonoTracker:
         self.bow_index.add_keyframe(kf, bow, feat_wid=wid)
         return bow
 
-    def _mapping_tail(self, kf, pyr):
-        """LocalMapping duties for one keyframe: triangulate, fuse, local
-        BA, cull, refresh the direct patches, place recognition and loop
-        closing, rebuild the cache."""
-        smap = self.map
-        with self.timer.stage("mapping_tail"):
+    def _mapping_tail(self, smap, kf, pyr):
+        """LocalMapping duties for one keyframe of `smap`: triangulate,
+        fuse, local BA, cull, refresh the direct patches, place recognition
+        and loop closing, rebuild the cache. Inline or on the worker; holds
+        the map lock throughout. A job queued before reset() swapped the
+        map (or whose keyframe is gone) drops itself."""
+        with self.timer.stage("mapping_tail"), self._map_lock:
+            if smap is not self.map or kf >= smap.n_kf \
+                    or not smap.kf_valid[kf]:
+                return
             with self.timer.stage("mt_triangulate"):
                 cov = smap.covisibility(kf)
+                # skip partners whose deferred extraction has not run yet
+                cov = np.where(smap.kf_feat_pending[: len(cov)], 0, cov)
                 order = np.argsort(-cov)[:3]
                 partners = [int(p) for p in order
-                            if cov[p] > 0 or p == self._last_kf]
+                            if cov[p] > 0
+                            or (p == self._last_kf
+                                and not smap.kf_feat_pending[p])]
                 self.mapper.create_points_multi(smap, kf, partners, pyr)
             with self.timer.stage("mt_fuse"):
                 self.mapper.search_in_neighbors(smap, kf)
@@ -934,6 +1392,11 @@ class MonoTracker:
 
     def _on_keyframe_created(self, kf, ts):
         """Called after a keyframe is added, before its mapping tail."""
+
+    def _on_map_corrected(self):
+        """Called before the first frame that tracks against a snapshot the
+        async worker published after a mapping tail (its BA moved the
+        map)."""
 
     def _run_local_ba(self, smap, kf):
         """Local BA of the mapping tail; the mono-VI tracker swaps in the

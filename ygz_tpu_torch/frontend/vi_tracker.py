@@ -21,8 +21,10 @@ PredictNavStateByIMU, TrackLocalMap*WithIMU; LocalMapping::TryInitVIO):
 
 The IMU numerics run on the tracker's device; the filter's state (the
 NavState at the last frame, biases, prior) is host numpy, as in the JAX
-package. The mapping tail is synchronous, so the JAX class's map lock,
-mapping worker and wait_mapping_idle have no counterpart here.
+package. With ``async_mapping`` the keyframe chain is written under the
+map lock, VINS init runs against a drained mapping queue, and frames run
+on the per-frame path (``track_batch`` refuses batching under the IMU
+predictor, as the JAX package does).
 """
 from __future__ import annotations
 
@@ -136,17 +138,9 @@ class MonoViTracker(MonoTracker):
         SaveKeyFrameTrajectoryNavState)."""
         return rec.R, rec.t
 
-    def reset(self, keep_trajectory: bool = True):
-        traj = self.trajectory if keep_trajectory else []
-        for rec in traj:  # bake relative records against the dying map
-            if rec.ref_kf >= 0:
-                rec.R, rec.t = self.recovered_pose(rec)
-                rec.ref_kf, rec.R_r, rec.t_r = -1, None, None
-        fid = self.frame_id
+    def _reinit(self):
         self.__init__(self.cam, self.cfg, device=self.device,
                       **self._init_kwargs)
-        self.trajectory = traj
-        self.frame_id = fid
 
     # ------------------------------------------------------------------ utils
     def _preintegrate(self, windows, bg, ba):
@@ -224,14 +218,19 @@ class MonoViTracker(MonoTracker):
     def _gather_obs(self, ids, uv, lvl, xyz=None):
         """Pad tracked observations to the fixed cap for the optimizers.
         `xyz`: the positions the frame step tracked against; None reads the
-        live map (the synchronous tail cannot change it mid-frame)."""
+        live map under the lock (an unlocked read could see half of a
+        worker's BA commit)."""
         cap = self.cfg.max_track
         n = min(len(ids), cap)
         X = np.zeros((cap, 3), np.float32)
         uvp = np.zeros((cap, 2), np.float32)
         is2 = np.ones(cap, np.float32)
         val = np.zeros(cap, bool)
-        X[:n] = xyz[:n] if xyz is not None else self.map.pt_xyz[ids[:n]]
+        if xyz is not None:
+            X[:n] = xyz[:n]
+        else:
+            with self._map_lock:
+                X[:n] = self.map.pt_xyz[ids[:n]]
         uvp[:n] = uv[:n]
         is2[:n] = 0.25 ** lvl[:n]
         val[:n] = True
@@ -377,14 +376,25 @@ class MonoViTracker(MonoTracker):
 
     # ------------------------------------------------------------- keyframes
     def _on_keyframe_created(self, kf, ts):
-        """Record this keyframe's IMU window before its mapping tail."""
-        prev_t = self.map.kf_ts[self._kf_order[-1]] if self._kf_order \
-            else (self._imu_since_kf[0][0] if self._imu_since_kf else ts)
-        self._kf_imu[kf] = _pack_window(self._imu_since_kf, prev_t,
-                                        KF_IMU_CAP)
-        self._kf_raw[kf] = list(self._imu_since_kf)
-        self._kf_order.append(kf)
-        self._imu_since_kf = []
+        """Record this keyframe's IMU window before its mapping tail is run
+        or queued (the worker's window BA must see a complete chain); the
+        chain is shared with the worker under the map lock."""
+        with self._map_lock:
+            prev_t = self.map.kf_ts[self._kf_order[-1]] if self._kf_order \
+                else (self._imu_since_kf[0][0] if self._imu_since_kf else ts)
+            self._kf_imu[kf] = _pack_window(self._imu_since_kf, prev_t,
+                                            KF_IMU_CAP)
+            self._kf_raw[kf] = list(self._imu_since_kf)
+            self._kf_order.append(kf)
+            self._imu_since_kf = []
+
+    def _on_map_corrected(self):
+        """The worker's window BA moved the map under the filter: the
+        marginal prior and the previous frame's landmarks belong to the
+        map before it, so drop them, as the synchronous tail does right
+        after its keyframe's BA."""
+        self._has_prior = False
+        self._prev_obs = None
 
     def _create_keyframe(self, pyr, ts, R, t, tracked_ids, tracked_uv,
                          tracked_lvl):
@@ -392,7 +402,11 @@ class MonoViTracker(MonoTracker):
                                  tracked_lvl)
         kf = self._last_kf
         if not self.vio_ready:
-            with self.timer.stage("vins_init"):
+            if self._map_worker is not None:
+                # VINS init rewrites the whole map (rescale): run it only
+                # against a drained mapping queue
+                self.wait_mapping_idle()
+            with self.timer.stage("vins_init"), self._map_lock:
                 self._try_vins_init()
         # the window BA at this keyframe rewrote poses and points: the
         # carried marginal prior and the previous frame's landmark snapshot

@@ -1,10 +1,14 @@
 """Batched inverse-compositional patch alignment (Align2D) + affine warps.
 
 Port of ``ygz_tpu/ops/align.py``: all candidate points align at once, with
-patches in an [N, P, P] tensor, closed-form 3x3 Hessian inverses and a
+patches in an [N, P, P] tensor, batched 3x3 Hessian inverses and a
 fixed number of iterations (a Python loop in place of ``lax.fori_loop``;
 no data-dependent early exit, so the result matches the reference and the
-host never waits on the device inside the loop).
+host never waits on the device inside the loop). The frame step that runs
+these is captured as a CUDA graph (``frontend/framestep_graph.py``): the
+Hessian inverses use ``inv_ex`` (no host sync on singular input) through
+the cuBLAS batched LU that the capture pins, and the 2x2 determinant of
+``best_search_level`` is written out.
 """
 from __future__ import annotations
 
@@ -83,9 +87,14 @@ def affine_warp_matrix(X_ref, uv_ref, fx, fy, cx, cy, R_cr, t_cr, fx_c, fy_c,
     return torch.stack([(du - c) / d, (dv - c) / d], -1)
 
 
+def det2x2(A):
+    """Determinants of [..., 2, 2] matrices, written out."""
+    return A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
+
+
 def best_search_level(A_cur_ref, max_level: int):
     """Level where the warped patch covers ~1 px^2 per pixel."""
-    det = torch.linalg.det(A_cur_ref).abs()
+    det = det2x2(A_cur_ref).abs()
     lvl = torch.ceil(0.5 * torch.log2(torch.clamp(det, min=1e-6)))
     return torch.clamp(torch.clamp(lvl, 0, max_level).to(torch.int32), 0,
                        max_level)

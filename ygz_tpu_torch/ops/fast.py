@@ -16,6 +16,7 @@ else raises. Kernel and plain version give the same bits for any threshold
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,6 +30,8 @@ CIRCLE = (
 ARC = 10  # FAST-10
 # high-threshold corners rank above every low-threshold one in the merge
 HI_BONUS = 1000.0
+# the launch counts are bumped from the tracking and the mapping threads
+_count_lock = threading.Lock()
 
 
 def _shift(img, dx, dy):
@@ -111,7 +114,8 @@ def fast_score_map(img, threshold: float = 20.0):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         _check_launch(fn(img.data_ptr(), out.data_ptr(), H, W,
                          float(threshold), stream), "fast_score")
-        fast_score_map.launches += 1
+        with _count_lock:
+            fast_score_map.launches += 1
         return out
     if img.device.type == "cpu":
         return fast_score_map_torch(img, threshold)
@@ -166,7 +170,8 @@ def fast_corner_maps(stack, height: int, n_levels: int, th_hi: float,
                          ints(*(h for h, _ in shapes)),
                          ints(*(w for _, w in shapes)), n_levels,
                          float(th_hi), float(th_lo), stream), "fast_corners")
-        fast_corner_maps.launches += 1
+        with _count_lock:
+            fast_corner_maps.launches += 1
         return out
     if stack.device.type == "cpu":
         return fast_corner_maps_torch(stack, height, n_levels, th_hi, th_lo)

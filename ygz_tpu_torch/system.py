@@ -1,11 +1,11 @@
 """System facade: the public entry point of the PyTorch port.
 
 Port of ``ygz_tpu/system.py`` for all four sensors: construction,
-``track_monocular``, ``track_stereo``, ``track_rgbd``, ``track_mono_vi``,
-the TUM, KITTI and keyframe-NavState trajectory savers, ``trajectory``,
-``map``, ``reset``, map save/load (a loaded map is entered through
-relocalization) and the localization-only mode. Batched tracking
-(``track_monocular_batch``) is not ported yet (ROADMAP queue A).
+``track_monocular``, the batched ``track_monocular_batch``,
+``track_stereo``, ``track_rgbd``, ``track_mono_vi``, the TUM, KITTI and
+keyframe-NavState trajectory savers, ``trajectory``, ``map``, ``reset``,
+``shutdown`` (drains the async mapping worker), map save/load (a loaded map
+is entered through relocalization) and the localization-only mode.
 """
 from __future__ import annotations
 
@@ -104,6 +104,13 @@ class System:
         Returns (state_name, T_cw [4, 4]) — identity until initialized."""
         return self._result(*self.tracker.track(img, timestamp))
 
+    def track_monocular_batch(self, imgs, timestamps):
+        """Monocular tracking of consecutive frames in chunks of
+        TrackerConfig.track_batch (MonoTracker.track_batch). Returns a list
+        of (state_name, T_cw [4, 4]) per frame."""
+        return [self._result(*r)
+                for r in self.tracker.track_batch(imgs, timestamps)]
+
     def track_stereo(self, img_left, img_right, timestamp: float):
         """Stereo entry point (reference System::TrackStereo): a rectified,
         undistorted [H, W] pair; Camera.bf must be set. Returns what
@@ -182,6 +189,12 @@ class System:
     def reset(self):
         """Clear map and tracking state (reference System::Reset)."""
         self.tracker.reset(keep_trajectory=False)
+
+    def shutdown(self):
+        """Drain the async mapping worker, if one runs, and raise its error
+        (reference System::Shutdown joins LocalMapping)."""
+        if self.tracker._map_worker is not None:
+            self.tracker.wait_mapping_idle()
 
     # ------------------------------------------------------------ persistence
     def save_map(self, path: str):
