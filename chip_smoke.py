@@ -49,6 +49,23 @@ Phases (any failure raises and the script exits non-zero):
      graph against the eager step (per frame from the same inputs, and
      chained in turns: ms and launches per frame). Every tracked path below
      replays the captured frame step too;
+  10b. the dataset runners from trees on disk, written with the port's PNG
+     encoder under build/smoke_trees/: a EuRoC tree (the 160 frames of
+     phase 3 without the exposure drop, its ground truth, a settings file
+     with ORBextractor.keypointMode: octree) through
+     examples/mono_euroc.py; a TUM RGB-D tree (phase 10's 46 frames as RGB
+     PNGs with 16-bit depth at 5000 per metre, rgb.txt, depth.txt) through
+     examples/rgbd_tum.py in grid mode with a settings file; a KITTI tree
+     (60 frames 1241x376, f=718.856, examples/mono_kitti.py's default
+     camera) through examples/mono_kitti.py. Frames OK, ATE, trajectory
+     files, one fused FAST launch per extraction, each runner's median ms
+     per frame and decode ms per frame. Then the octree extraction card vs
+     CPU on frames 0 and 80 of the EuRoC tree; examples/mono_euroc.py's
+     default camera (radtan distortion) with its graph replay, undistort
+     remap inside, held bit-exact to the eager step over 10 frames, and at
+     KITTI's shape the frame step card vs CPU and its replay bit-exact;
+     the native PNG loader against io/png.py byte for byte where it
+     builds, and which route decodes;
   11. mono-VI: System.track_mono_vi over 260 frames of the EuRoC cam0
      geometry along the JAX VI tests' trajectory (0.6 m/s, 20 fps) with its
      exact 200 Hz IMU and the default settings; two blank-frame outages (12
@@ -64,7 +81,7 @@ of JAX. It runs in PyTorch's default mode; the port's segment sums add in
 a fixed order on the card, and a second mono-VI run is held bit for bit to
 the first. `python3 chip_smoke.py --paths-only` builds the kernel and
 times only the monocular, stereo and RGB-D paths (for comparing two trees
-in one call).
+in one call); `--runners-only` runs only phase 10b.
 """
 from __future__ import annotations
 
@@ -118,6 +135,11 @@ VI_OUT1, VI_OUT2 = (150, 162), (190, 230)
 # slices of 3 chunks of 32) on the same sequence, and 20 frames past it for
 # the eager step against the graph replay
 BATCH, N_WARM, N_TIMED, N_TURN = 32, 48, 240, 20
+# the runner phase: KITTI frames, and the distorted camera's frames
+# tracked before its graph replay is held to the eager step
+N_KITTI_FRAMES, N_DIST, N_DIST_TURN = 60, 30, 10
+# PNG decodes timed per route and kind of file
+N_PNG_TIMED = 8
 
 
 def euroc_pose(i):
@@ -603,8 +625,8 @@ def check_relocalization(system, frames, poses, align, length):
     """Three black frames must lose the tracker; the view of frame REVISIT
     must then relocalize it within 3 tries, its camera centre (through the
     main run's 7-DoF alignment) within RELOC_BOUND of the path of the true
-    one, and the 10 frames after it must all track. Returns the fused FAST
-    launches on this path."""
+    one, and the 10 frames after it must all track. Returns the fused and
+    the single-threshold FAST launches on this path."""
     from ygz_tpu_torch.ops import fast
 
     ts = len(system.trajectory) * 0.05
@@ -653,7 +675,7 @@ def check_relocalization(system, frames, poses, align, length):
     if any(a[1] < 1 for a in attempts) or fast.fast_score_map.launches:
         raise RuntimeError("a relocalization attempt did not go through "
                            "the fused fast_corners kernel")
-    return launches
+    return launches, fast.fast_score_map.launches
 
 
 def stereo_sequence(n):
@@ -1268,13 +1290,14 @@ def check_batch_result(system, states, poses, secs, drain, tails, logged):
         raise RuntimeError("a deferred keyframe extraction never ran")
 
 
-def check_graph_vs_eager(system, frames):
+def check_graph_vs_eager(system, frames, profiled=True):
     """The captured frame step against the eager frame_step on the card,
     from the tracker's final carry and cache over the given frames: per
     frame from the same inputs (poses within 1e-5, tracked and visible
     masks equal; bit-exact or not), then both chained over the frames in
-    turns (eager, graph, graph, eager) for ms per frame, and
-    torch.profiler for launches per frame. Returns the numbers."""
+    turns (eager, graph, graph, eager) for ms per frame, and, if
+    `profiled`, torch.profiler for launches per frame. Returns the
+    numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ygz_tpu_torch.frontend.framestep import (FrameCarry, frame_step,
@@ -1290,8 +1313,8 @@ def check_graph_vs_eager(system, frames):
         outs = []
         for img in imgs:
             carry, packed = frame_step(torch.as_tensor(img, device="cuda"),
-                                       carry, cache, graph.no_pred, None,
-                                       tr.intr)
+                                       carry, cache, graph.no_pred,
+                                       graph.remap, tr.intr)
             outs.append(packed.cpu())
         return carry, outs
 
@@ -1327,7 +1350,8 @@ def check_graph_vs_eager(system, frames):
             1e3 * (time.perf_counter() - t0) / len(frames))
     # launches per frame (host API calls) and device time per frame
     counts = {}
-    for label, run in (("eager", eager_run), ("graph", graph_run)):
+    runs = (("eager", eager_run), ("graph", graph_run)) if profiled else ()
+    for label, run in runs:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run(FrameCarry(*(a.clone() for a in start)), frames[:5])
@@ -1353,11 +1377,10 @@ def check_graph_vs_eager(system, frames):
                   f"(name, us per frame, launches per frame): {top}")
     rec = {"frames": len(frames), "bit_exact": exact,
            "max_abs_R": worst_R, "max_abs_t": worst_t, "masks_equal": masks,
-           "eager_ms": ms["eager"], "graph_ms": ms["graph"],
-           "eager_calls": counts["eager"][0],
-           "graph_calls": counts["graph"][0],
-           "eager_device_ms": counts["eager"][1],
-           "graph_device_ms": counts["graph"][1]}
+           "eager_ms": ms["eager"], "graph_ms": ms["graph"]}
+    for label, (calls, dev_ms) in counts.items():
+        rec[f"{label}_calls"] = calls
+        rec[f"{label}_device_ms"] = dev_ms
     print(f"frame step, graph vs eager on the card over {len(frames)} "
           f"frames: bit-exact {exact}; max |dR| {worst_R:.2e}, max |dt| "
           f"{worst_t:.2e}; masks equal {masks}")
@@ -1366,8 +1389,7 @@ def check_graph_vs_eager(system, frames):
           f"{round(ms['eager'][1], 3)}; fps eager "
           f"{1e3 / np.mean(ms['eager']):.2f}, graph "
           f"{1e3 / np.mean(ms['graph']):.2f}")
-    for label in ("eager", "graph"):
-        calls, dev_ms = counts[label]
+    for label, (calls, dev_ms) in counts.items():
         print(f"frame step {label}: host launch calls per frame {calls}; "
               f"device time {dev_ms:.3f} ms per frame")
     if worst_R > 1e-5 or worst_t > 1e-5 or not masks:
@@ -1378,7 +1400,8 @@ def check_graph_vs_eager(system, frames):
 def run_counted(fast, label, fn):
     """Runs fn with every kernel's launch count set to 0 and the
     extractor's calls counted; checks one fused launch per extraction and
-    no single-threshold launch. Returns (fn's result, fused launches)."""
+    no single-threshold launch. Returns (fn's result, fused launches,
+    single-threshold launches), both read at the end of this run."""
     import torch
 
     fast.fast_score_map.launches = 0
@@ -1395,7 +1418,7 @@ def run_counted(fast, label, fn):
     if not extractions or fused != len(extractions) or single:
         raise RuntimeError(f"{label} did not make exactly one fast_corners "
                            f"launch per extraction")
-    return out, fused
+    return out, fused, single
 
 
 def check_ransac():
@@ -1596,6 +1619,495 @@ def check_loop_correction():
                            "CPU")
 
 
+def tree_root(name):
+    """An empty directory for a synthesized dataset tree under the
+    git-ignored build/ of this checkout."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / "smoke_trees" / name
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    return str(root)
+
+
+@contextlib.contextmanager
+def counted_depth_seeds():
+    """Depth points seeded per keyframe by any RGB-D or stereo tracker
+    while the block runs (a dict keyframe -> points)."""
+    from ygz_tpu_torch.frontend.tracker import RgbdTracker
+
+    seeded = {}
+    real = RgbdTracker._create_depth_points
+
+    def counted(self, smap, kf, pyr):
+        seeded[kf] = real(self, smap, kf, pyr)
+        return seeded[kf]
+
+    RgbdTracker._create_depth_points = counted
+    try:
+        yield seeded
+    finally:
+        RgbdTracker._create_depth_points = real
+
+
+def states_after_init(system):
+    """(states, share OK after the first OK frame) of a run."""
+    states = [rec.state for rec in system.trajectory]
+    if "OK" not in states:
+        raise RuntimeError("the tracker never initialized")
+    after = states[states.index("OK"):]
+    return states, sum(s == "OK" for s in after) / len(after)
+
+
+def runner_report(label, system, timer, smi):
+    """Prints the runner's stage report, its median ms per frame and the
+    decode ms per frame; returns (median ms per frame, decode ms per
+    frame)."""
+    from ygz_tpu_torch import native
+
+    per_frame = len(timer.decode) / max(len(timer.times), 1)
+    decode_ms = 1e3 * float(np.median(timer.decode)) * per_frame
+    print(f"runner {label} ({smi}): median {timer.median_ms():.2f} ms per "
+          f"frame over {len(timer.times)} frames; decode {decode_ms:.3f} ms "
+          f"per frame ({per_frame:.0f} image(s) each) by "
+          f"{native.route()}")
+    print(f"runner {label} ({smi}) {system.tracker.timer.report()}")
+    return timer.median_ms(), decode_ms
+
+
+def run_euroc_runner(fast, frames, poses, smi):
+    """A EuRoC tree (cam0 752x480 at 20 fps, its ground truth, a settings
+    file with ORBextractor.keypointMode: octree) driven through
+    examples/mono_euroc.py on the card: frames OK after init >= 0.80, the
+    last OK, 7-DoF ATE < 3% of the path, one trajectory row per OK frame,
+    one fused launch per extraction. Returns (root, fused launches, the
+    runner's numbers)."""
+    from ygz_tpu_torch.eval.ate import ate_rmse
+    from ygz_tpu_torch.examples import mono_euroc
+    from ygz_tpu_torch.utils.dataset_trees import settings_yaml, write_euroc
+
+    root = tree_root("euroc")
+    t0 = time.perf_counter()
+    write_euroc(root, frames, poses, fps=20.0)
+    yml = f"{root}/settings.yaml"
+    with open(yml, "w") as f:
+        f.write(settings_yaml(F, F, W / 2.0 - 0.5, H / 2.0 - 0.5, W, H, 20.0,
+                              {"ORBextractor.keypointMode": "octree"}))
+    print(f"EuRoC tree: {len(frames)} frames written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    traj = f"{root}/trajectory.txt"
+    (system, timer), *launches = run_counted(
+        fast, "runner mono_euroc (octree)",
+        lambda: mono_euroc.main([root, "--settings", yml, "--eval-ate",
+                                 "--timings", "--out", traj]))
+    if system.tracker.extractor.mode != "octree":
+        raise RuntimeError("the settings file did not select the octree "
+                           "keypoint mode")
+    states, frac = states_after_init(system)
+    est, gt = [], []
+    for rec, (R, t) in zip(system.trajectory, poses):
+        if rec.state == "OK":
+            Rr, tr = system.tracker.recovered_pose(rec)
+            est.append(-Rr.T @ tr)
+            gt.append(-R.T @ t)
+    est, gt = np.array(est), np.array(gt)
+    rmse, _ = ate_rmse(est, gt, with_scale=True)
+    length = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    rows = np.loadtxt(traj, ndmin=2)
+    print(f"runner mono_euroc (octree): frames OK after init {frac:.3f}, "
+          f"last {states[-1]}; keyframes {system.map.n_kf}; ATE RMSE (7-DoF, "
+          f"{len(est)} poses) {rmse:.5f} over a {length:.3f} path "
+          f"({100 * rmse / length:.3f}%); trajectory rows {len(rows)}")
+    if frac < 0.8 or states[-1] != "OK":
+        raise RuntimeError(f"runner mono_euroc: {frac:.3f} OK after init, "
+                           f"last {states[-1]}")
+    if not rmse < 0.03 * length:
+        raise RuntimeError(f"runner mono_euroc: ATE {rmse:.5f} >= 3% of "
+                           f"the path")
+    if rows.shape != (states.count("OK"), 8) or not np.isfinite(rows).all():
+        raise RuntimeError(f"runner mono_euroc: trajectory file {rows.shape} "
+                           f"for {states.count('OK')} OK frames")
+    ms, decode_ms = runner_report("mono_euroc (octree)", system, timer, smi)
+    return root, launches, {"ms_per_frame": ms, "decode_ms": decode_ms,
+                            "ate_pct": 100 * rmse / length,
+                            "frames_ok": frac}
+
+
+def tinted(gray):
+    """A u8 gray frame as an RGB one whose channels differ (so the
+    decoders' colour-to-gray conversion runs on every pixel)."""
+    g = gray.astype(np.float32)
+    rgb = np.stack([g, 0.85 * g + 20.0, 1.1 * g - 8.0], -1)
+    return np.clip(np.round(rgb), 0, 255).astype(np.uint8)
+
+
+def run_tum_runner(fast, rg_poses, rg_frames, smi):
+    """A TUM RGB-D tree (640x480 RGB frames, 16-bit depth at 5000 per
+    metre, rgb.txt, depth.txt, the ground truth; 30 fps) driven through
+    examples/rgbd_tum.py in grid mode with a settings file; the RGB-D
+    bounds of check_depth_result. Returns (root, fused launches, the
+    runner's numbers)."""
+    from ygz_tpu_torch.examples import rgbd_tum
+    from ygz_tpu_torch.utils.dataset_trees import settings_yaml, write_tum
+
+    root = tree_root("tum")
+    write_tum(root, [tinted(g) for g, _ in rg_frames],
+              [d for _, d in rg_frames], rg_poses, fps=30.0)
+    yml = f"{root}/settings.yaml"
+    with open(yml, "w") as f:
+        f.write(settings_yaml(TUM_F, TUM_F, TUM_W / 2.0 - 0.5, H / 2.0 - 0.5,
+                              TUM_W, H, 30.0, {"DepthMapFactor": 5000.0}))
+    with counted_depth_seeds() as seeded:
+        (system, timer), *launches = run_counted(
+            fast, "runner rgbd_tum", lambda: rgbd_tum.main(
+                [root, "--settings", yml, "--timings",
+                 "--out", f"{root}/trajectory.txt"]))
+    if system.tracker.extractor.mode != "grid":
+        raise RuntimeError("rgbd_tum did not run in grid mode")
+    states = [rec.state for rec in system.trajectory]
+    check_depth_result("rgbd", system, states, seeded, rg_poses)
+    ms, decode_ms = runner_report("rgbd_tum", system, timer, smi)
+    return root, launches, {"ms_per_frame": ms, "decode_ms": decode_ms,
+                            "frames_ok": states.count("OK") / len(states)}
+
+
+def run_kitti_runner(fast, smi):
+    """A KITTI odometry tree (sequence 00's left camera, 1241x376, f =
+    718.856, the principal point of examples/mono_kitti.py; 10 fps) of
+    N_KITTI_FRAMES frames along euroc_pose, driven through
+    examples/mono_kitti.py with its default camera: frames OK after init
+    >= 0.80 and the last OK. Then, at that ragged shape: the fused FAST
+    kernel against its plain version on two frames, the run card vs CPU
+    frame by frame, the extraction card vs CPU on the frames where either
+    run made a keyframe, and the
+    frame step card vs CPU and its graph replay against the eager step
+    (bit-exact) over 5 more frames. Returns ((fused, single-threshold
+    launches), the runner's numbers, the kernel's max |err|)."""
+    from ygz_tpu_torch.examples import mono_kitti
+    from ygz_tpu_torch.io.datasets import KittiOdometryDataset
+    from ygz_tpu_torch.utils.dataset_trees import write_kitti
+    from ygz_tpu_torch.utils.synthetic import SmoothScene
+
+    cam = mono_kitti.KITTI_CAM
+    scene = SmoothScene(seed=11, w=cam["width"], h=cam["height"],
+                        f=cam["fx"], tex_size=2400)
+    scene.cx, scene.cy = cam["cx"], cam["cy"]
+    t0 = time.perf_counter()
+    frames = [scene.render_u8(*euroc_pose(i)) for i in range(N_KITTI_FRAMES)]
+    root = tree_root("kitti")
+    write_kitti(root, frames, fps=10.0)
+    print(f"KITTI tree: {len(frames)} frames {cam['width']}x{cam['height']} "
+          f"rendered and written in {time.perf_counter() - t0:.1f} s")
+    (system, timer), *launches = run_counted(
+        fast, "runner mono_kitti", lambda: mono_kitti.main(
+            [root, "--timings", "--out", f"{root}/trajectory.txt"]))
+    states, frac = states_after_init(system)
+    print(f"runner mono_kitti: frames OK after init {frac:.3f}, last "
+          f"{states[-1]}; keyframes {system.map.n_kf}; trajectory "
+          f"{''.join(s[0] for s in states)}")
+    if frac < 0.8 or states[-1] != "OK":
+        raise RuntimeError(f"runner mono_kitti: {frac:.3f} OK after init, "
+                           f"last {states[-1]}")
+    ms, decode_ms = runner_report("mono_kitti", system, timer, smi)
+    err = max(hold_fast_corners(frames[i], f"KITTI frame {i}")
+              for i in (0, N_KITTI_FRAMES // 2))
+    ds = KittiOdometryDataset(root)
+    at = kitti_card_vs_cpu(ds, cam)
+    hold_extraction([ds.frames[i].load() for i in at], "grid",
+                    f"the KITTI tree (frames {at})", exact_desc=False)
+    # the ragged 1241x376 pyramid: the frame step card vs CPU, and its
+    # graph replay against the eager step, past the run's last frame
+    more = [scene.render_u8(*euroc_pose(i))
+            for i in range(N_KITTI_FRAMES, N_KITTI_FRAMES + 5)]
+    check_step_vs_cpu(system, more)
+    exact = check_graph_vs_eager(system, more, profiled=False)["bit_exact"]
+    if not exact:
+        raise RuntimeError("mono_kitti: the graph replay is not bit-exact "
+                           "against the eager step at 1241x376")
+    return launches, {"ms_per_frame": ms, "decode_ms": decode_ms,
+                      "frames_ok": frac}, err
+
+
+def kitti_card_vs_cpu(ds, cam):
+    """mono_kitti's System on the card and on the CPU, fed the KITTI tree
+    frame by frame: prints where their states first differ, the largest
+    camera-centre gap before that, and the frames at which each made its
+    keyframes. A record of where the two runs part, not a bound: float32
+    sums add in another order on the card. Returns the frames at which
+    either run made a keyframe."""
+    from ygz_tpu_torch.geometry.camera import Camera
+    from ygz_tpu_torch.system import Sensor, System
+
+    t0 = time.perf_counter()
+    runs = {dev: System(Camera.make(**cam), Sensor.MONOCULAR, device=dev)
+            for dev in ("cuda", "cpu")}
+    kfs = {dev: [] for dev in runs}
+    states = {dev: [] for dev in runs}
+    first_diff, gap = None, []
+    for i, fr in enumerate(ds):
+        img = fr.load()
+        centre = {}
+        for dev, system in runs.items():
+            n_kf = system.map.n_kf
+            state, T = system.track_monocular(img, fr.t)
+            states[dev].append(state)
+            kfs[dev] += [i] * max(system.map.n_kf - n_kf, 0)
+            centre[dev] = -T[:3, :3].T @ T[:3, 3]
+        if first_diff is None:
+            if states["cuda"][-1] != states["cpu"][-1]:
+                first_diff = i
+            elif states["cuda"][-1] == "OK":
+                gap.append((i, float(np.linalg.norm(centre["cuda"]
+                                                    - centre["cpu"]))))
+    worst = max(gap, key=lambda g: g[1]) if gap else None
+    print(f"mono_kitti card vs CPU frame by frame "
+          f"({time.perf_counter() - t0:.1f} s): states first differ at "
+          f"frame {first_diff}; largest camera-centre gap before that "
+          f"(frame, gap) {worst}; gaps at frames 10, 20, 30, 40: "
+          f"{[(i, round(g, 7)) for i, g in gap if i in (10, 20, 30, 40)]}")
+    for dev in runs:
+        print(f"mono_kitti on {dev}: {''.join(x[0] for x in states[dev])}; "
+              f"keyframes made at frames {kfs[dev]}")
+    return sorted(set(kfs["cuda"] + kfs["cpu"]))
+
+
+def hold_extraction(images, mode, label, exact_desc=True):
+    """OrbExtractor(mode) and its keyframe form (every other feature) on
+    each image, card against CPU: uv, level, score and valid equal, angles
+    within 1e-4; descriptors bit for bit, or with exact_desc=False within
+    C5's Hamming bound (median 0, 99th percentile <= 8 bits: a BRIEF test
+    reads two blurred pixels at rotated offsets, so a last-bit difference
+    in the blur or the angle can flip it)."""
+    import torch
+    from ygz_tpu_torch.frontend.extractor import OrbExtractor
+    from ygz_tpu_torch.frontend.framestep import build_pyramid_stacked
+
+    ext = OrbExtractor(mode=mode)
+    worst_angle, dists, flipped = 0.0, [], []
+    for i, img in enumerate(images):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            pyr = build_pyramid_stacked(torch.as_tensor(img, device=dev),
+                                        None, 4)
+            feats = ext(pyr)
+            half = feats.valid.clone()
+            half[1::2] = False
+            ang, desc, kf = ext.extract_keyframe(pyr, feats.uv, feats.level,
+                                                 half)
+            outs[dev] = [x.cpu() for x in (*feats, ang, desc, *kf)]
+        a, b = outs["cuda"], outs["cpu"]
+        # Features fields: uv, level, angle, score, desc, valid
+        for j in (0, 1, 3, 5, 8, 9, 11, 13):
+            if not torch.equal(a[j], b[j]):
+                raise RuntimeError(f"{mode} extraction of image {i} of "
+                                   f"{label}: field {j} differs between "
+                                   f"card and CPU")
+        for j in (2, 6, 10):
+            worst_angle = max(worst_angle, float((a[j] - b[j]).abs().max()))
+        # (descriptors, their angles): the call's, the keyframe form's
+        for j, k in ((4, 2), (7, 6), (12, 10)):
+            d = (a[j] != b[j]).sum(1)
+            dists.append(d)
+            for m in torch.nonzero(d).flatten().tolist():
+                flipped.append((i, int(d[m]),
+                                float((a[k][m] - b[k][m]).abs())))
+    d = torch.cat(dists).float()
+    print(f"{mode} extraction card vs CPU on {len(images)} images of "
+          f"{label} (call and keyframe form): uv, level, score, valid "
+          f"equal; max |d angle| {worst_angle:.2e}; descriptors differing "
+          f"{len(flipped)} of {len(d)} (image, bits, |d angle|): "
+          f"{flipped[:8]}")
+    if worst_angle > 1e-4:
+        raise RuntimeError(f"{mode} extraction on {label}: angles differ "
+                           f"between card and CPU")
+    if exact_desc and flipped:
+        raise RuntimeError(f"{mode} extraction on {label}: descriptors "
+                           f"differ between card and CPU")
+    if float(d.median()) != 0 or float(torch.quantile(d, 0.99)) > 8:
+        raise RuntimeError(f"{mode} extraction on {label}: descriptors "
+                           f"beyond C5's Hamming bound")
+
+
+def check_octree_card_vs_cpu(root):
+    """hold_extraction in octree mode on frames 0 and 80 of the EuRoC
+    tree; then extract_keyframe in grid and octree mode on the card, in
+    turns (grid, octree, octree, grid): host ms per call."""
+    import torch
+    from ygz_tpu_torch.frontend.extractor import OrbExtractor
+    from ygz_tpu_torch.frontend.framestep import build_pyramid_stacked
+    from ygz_tpu_torch.io.datasets import EurocDataset
+
+    ds = EurocDataset(root)
+    hold_extraction([ds.frames[i].load() for i in (0, DARK_FRAME)],
+                    "octree", "the EuRoC tree")
+    ext = {m: OrbExtractor(mode=m) for m in ("grid", "octree")}
+    pyr = build_pyramid_stacked(
+        torch.as_tensor(ds.frames[0].load(), device="cuda"), None, 4)
+    feats = ext["grid"](pyr)
+
+    def kf_ms(mode, n=20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ext[mode].extract_keyframe(pyr, feats.uv, feats.level,
+                                       feats.valid)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    ms = [(m, round(kf_ms(m), 3)) for m in ("grid", "octree", "octree",
+                                            "grid")]
+    print(f"extract_keyframe on the card in turns (mode, host ms per "
+          f"call): {ms}")
+    return ms
+
+
+def check_distorted_graph(smi):
+    """examples/mono_euroc.py's default camera (radtan distortion): frames
+    rendered through that camera, tracked by System.track_monocular on the
+    card (the undistort remap inside the captured frame step), then the
+    graph replay held to the eager step over N_DIST_TURN frames
+    (bit-exact). Returns check_graph_vs_eager's record."""
+    from ygz_tpu_torch.examples.mono_euroc import EUROC_CAM
+    from ygz_tpu_torch.geometry.camera import Camera
+    from ygz_tpu_torch.system import Sensor, System
+    from ygz_tpu_torch.utils.synthetic import SmoothScene
+
+    scene = SmoothScene(seed=11, w=W, h=H, f=F, tex_size=3000)
+    c = EUROC_CAM
+    grid = scene.distorted_grid(c["fx"], c["fy"], c["cx"], c["cy"],
+                                c["dist"])
+    frames = [np.clip(scene.render_at(*euroc_pose(i), grid), 0,
+                      255).astype(np.uint8)
+              for i in range(N_DIST + N_DIST_TURN)]
+    system = System(Camera.make(**c), Sensor.MONOCULAR, device="cuda")
+    states = [system.track_monocular(img, i * 0.05)[0]
+              for i, img in enumerate(frames[:N_DIST])]
+    print(f"distorted camera: {states.count('OK')}/{N_DIST} OK "
+          f"({''.join(s[0] for s in states)}); remap in the graph "
+          f"{system.tracker._graph.remap is not None}")
+    if states[-1] != "OK" or system.tracker._graph.remap is None:
+        raise RuntimeError("the distorted-camera run did not reach a "
+                           "replayed frame step with its remap")
+    rec = check_graph_vs_eager(system, frames[N_DIST:], profiled=False)
+    print(f"distorted camera ({smi}): graph replay "
+          f"{[round(v, 3) for v in rec['graph_ms']]} ms per frame, eager "
+          f"{[round(v, 3) for v in rec['eager_ms']]}; bit-exact "
+          f"{rec['bit_exact']}")
+    if not rec["bit_exact"]:
+        raise RuntimeError("distorted camera: the graph replay is not "
+                           "bit-exact against the eager step")
+    return rec
+
+
+def check_png_routes(euroc_root, tum_root):
+    """Every PNG route held byte for byte to io/png.py's Python unfilter on
+    N_PNG_TIMED frames of the EuRoC tree, 4 RGB and 4 depth frames of the
+    TUM tree (written with adaptive row filters, as libpng writes the
+    datasets' files) and filter-0 copies of those EuRoC frames: io/png.py
+    with the C unfilter (where it built) and the native loader (where g++
+    and libpng are; gray only). Each route's decode ms per 752x480 frame
+    on both kinds of file. Prints the active route (and why the native one
+    did not build)."""
+    import glob
+    import zlib
+
+    from ygz_tpu_torch import native
+    from ygz_tpu_torch.io import png
+
+    print(f"PNG route: {native.route()}; unfilter: {png.unfilter_route()}")
+    adaptive = sorted(glob.glob(f"{euroc_root}/mav0/cam0/data/*.png"))
+    tum = sorted(glob.glob(f"{tum_root}/rgb/*.png"))[:4]
+    depth = sorted(glob.glob(f"{tum_root}/depth/*.png"))[:4]
+    root = tree_root("filter0")
+    plain = []
+    for i, p in enumerate(adaptive[:N_PNG_TIMED]):
+        plain.append(f"{root}/{i}.png")
+        png.write_png(plain[-1], png.read_png(p))
+    kinds = np.zeros(5, np.int64)
+    for p in adaptive:
+        data = open(p, "rb").read()
+        idat = b"".join(b for k, b in png._chunks(data, p) if k == b"IDAT")
+        kinds += np.bincount(np.frombuffer(zlib.decompress(idat), np.uint8)
+                             .reshape(H, W + 1)[:, 0], minlength=5)
+    print(f"EuRoC tree: rows by filter type (None, Sub, Up, Average, "
+          f"Paeth) {kinds.tolist()}")
+    files = {"adaptive": adaptive[:N_PNG_TIMED], "filter 0": plain}
+    held = adaptive[:N_PNG_TIMED] + tum + plain
+    want = {p: png.decode_gray(p, force_python=True) for p in held}
+    routes = {"io/png.py, Python unfilter":
+              lambda p: png.decode_gray(p, force_python=True)}
+    if png.unfilter_route() == "C":
+        routes["io/png.py, C unfilter"] = png.decode_gray
+        if not all(np.array_equal(png.read_png(p),
+                                  png.read_png(p, force_python=True))
+                   for p in depth):
+            raise RuntimeError("the C unfilter disagrees with the Python "
+                               "one on 16-bit depth frames")
+    if native.available():
+        routes["native (libpng)"] = native.decode_gray
+    ms = {}
+    for name, fn in routes.items():
+        same = all(np.array_equal(fn(p), want[p]) for p in want)
+        print(f"{name} on {N_PNG_TIMED} gray and {len(tum)} RGB frames "
+              f"(adaptive filters) and {len(plain)} filter-0 ones: byte "
+              f"for byte {same}")
+        if not same:
+            raise RuntimeError(f"PNG route {name} disagrees with io/png.py")
+        for kind, paths in files.items():
+            t0 = time.perf_counter()
+            for p in paths:
+                fn(p)
+            ms[f"{name} ({kind})"] = (1e3 * (time.perf_counter() - t0)
+                                      / len(paths))
+    print(f"decode ms per 752x480 frame over {N_PNG_TIMED} frames: "
+          f"{ {k: round(v, 3) for k, v in ms.items()} }")
+    return ms
+
+
+def run_runner_phase(fast, smi, frames, poses, rg_poses, rg_frames,
+                     score_rec, corners_rec):
+    """The dataset runners from trees on disk (EuRoC octree, TUM RGB-D,
+    KITTI), the octree extraction card vs CPU, the distorted camera's
+    graph replay and the PNG routes. Adds the runners' launch counts to
+    the kernels' records."""
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    euroc_root, (fused, single), mono = timed(
+        "mono_euroc", lambda: run_euroc_runner(fast, frames, poses, smi))
+    corners_rec["launches_runner_mono"] = fused
+    score_rec["launches_runner_mono"] = single
+    tum_root, (fused, single), rgbd = timed("rgbd_tum", lambda: run_tum_runner(
+        fast, rg_poses, rg_frames, smi))
+    corners_rec["launches_runner_rgbd"] = fused
+    score_rec["launches_runner_rgbd"] = single
+    (fused, single), kitti, err = timed(
+        "mono_kitti", lambda: run_kitti_runner(fast, smi))
+    corners_rec["launches_runner_kitti"] = fused
+    score_rec["launches_runner_kitti"] = single
+    corners_rec["max_abs_err"] = max(corners_rec.get("max_abs_err", 0.0),
+                                     err)
+    kf_ms = timed("octree_card_vs_cpu",
+                  lambda: check_octree_card_vs_cpu(euroc_root))
+    dist = timed("distorted_graph", lambda: check_distorted_graph(smi))
+    decode = timed("png_routes",
+                   lambda: check_png_routes(euroc_root, tum_root))
+    rec = {"mono_euroc": mono, "rgbd_tum": rgbd, "mono_kitti": kitti,
+           "extract_keyframe_ms": kf_ms, "decode_ms": decode,
+           "distorted_graph_ms": dist["graph_ms"],
+           "distorted_eager_ms": dist["eager_ms"],
+           "distorted_bit_exact": dist["bit_exact"],
+           "seconds": secs}
+    print(f"runner phase: {sum(secs.values()):.1f} s ({secs})")
+    return rec
+
+
 def time_paths(smi):
     """The tracked paths of the earlier slices (mono, stereo, RGB-D) at the
     smoke's depths, each with its stage report and nothing else: run as
@@ -1617,6 +2129,7 @@ def time_paths(smi):
 
 def main() -> int:
     paths_only = sys.argv[1:] == ["--paths-only"]
+    runners_only = sys.argv[1:] == ["--runners-only"]
     import torch
 
     if not torch.cuda.is_available():
@@ -1639,6 +2152,14 @@ def main() -> int:
     if paths_only:
         time_paths(smi)
         return 0
+    if runners_only:
+        _, poses, clean = render_sequence(N_FRAMES, dark=False)
+        rg_poses, rg_frames = rgbd_sequence(N_RGBD_FRAMES)
+        recs = ({}, {})
+        print(json.dumps({"runners": run_runner_phase(
+            fast, smi, clean, poses, rg_poses, rg_frames, *recs)}))
+        print(json.dumps({"kernels": list(recs)}))
+        return 0
 
     t0 = time.perf_counter()
     scene, poses, clean = render_sequence(N_WARM + N_TIMED + N_TURN,
@@ -1652,29 +2173,28 @@ def main() -> int:
     # the batched async path (System.track_monocular_batch with the
     # mapping worker; frame steps replayed as a CUDA graph)
     n_batch = N_WARM + N_TIMED
-    (bsys, bstates, bsecs, drain, tails, logged), launches = run_counted(
-        fast, "batched async path",
-        lambda: run_batch_path(clean[:n_batch], "cuda"))
-    corners_rec["launches_batch_async"] = launches
-    score_rec["launches_batch_async"] = fast.fast_score_map.launches
+    (bsys, bstates, bsecs, drain, tails, logged), fused, single = \
+        run_counted(fast, "batched async path",
+                    lambda: run_batch_path(clean[:n_batch], "cuda"))
+    corners_rec["launches_batch_async"] = fused
+    score_rec["launches_batch_async"] = single
     print(f"batched async path ({smi}) {bsys.tracker.timer.report()}")
     check_batch_result(bsys, bstates, poses[:n_batch], bsecs, drain, tails,
                        logged)
     step_rec = check_graph_vs_eager(bsys, clean[n_batch:])
 
-    (system, states, ladder, secs), corners_rec["launches"] = run_counted(
+    (system, states, ladder, secs), fused, single = run_counted(
         fast, "main path", lambda: run_main_path(frames[:N_FRAMES], "cuda"))
-    score_rec["launches"] = fast.fast_score_map.launches
+    corners_rec["launches"], score_rec["launches"] = fused, single
     print(f"main path: {N_FRAMES} frames in {secs:.2f} s "
           f"({1e3 * secs / N_FRAMES:.2f} ms/frame mean)")
     print(f"main path ({smi}) {system.tracker.timer.report()}")
     align, length = check_result(system, states, ladder, poses[:N_FRAMES])
     check_step_vs_cpu(system, frames[N_FRAMES:])
     check_global_ba(system)
-    corners_rec["launches_relocalization"] = check_relocalization(
+    (corners_rec["launches_relocalization"],
+     score_rec["launches_relocalization"]) = check_relocalization(
         system, frames, poses, align, length)
-    # the extractor no longer runs the single-threshold entry
-    score_rec["launches_relocalization"] = fast.fast_score_map.launches
     check_ransac()
     check_loop_correction()
 
@@ -1690,32 +2210,37 @@ def main() -> int:
         corners_rec["max_abs_err"],
         *(hold_fast_corners(rg_frames[i][0], f"RGB-D frame {i}")
           for i in (0, N_RGBD_FRAMES // 2)))
-    for sensor, poses, seq in (("stereo", st_poses, pairs),
-                               ("rgbd", rg_poses, rg_frames)):
-        (dsys, dstates, seeded, secs), launches = run_counted(
+    for sensor, dposes, seq in (("stereo", st_poses, pairs),
+                                ("rgbd", rg_poses, rg_frames)):
+        (dsys, dstates, seeded, secs), fused, single = run_counted(
             fast, f"{sensor} path", lambda: run_depth_path(sensor, seq,
                                                            "cuda"))
-        corners_rec[f"launches_{sensor}"] = launches
-        score_rec[f"launches_{sensor}"] = fast.fast_score_map.launches
+        corners_rec[f"launches_{sensor}"] = fused
+        score_rec[f"launches_{sensor}"] = single
         print(f"{sensor} path: {len(seq)} frames in {secs:.2f} s "
               f"({1e3 * secs / len(seq):.2f} ms/frame mean)")
         print(f"{sensor} path ({smi}) {dsys.tracker.timer.report()}")
-        check_depth_result(sensor, dsys, dstates, seeded, poses)
+        check_depth_result(sensor, dsys, dstates, seeded, dposes)
         if sensor == "stereo":
             check_stereo_match(dsys, pairs)
     # the first frame steps after RGB-D's one-frame init, card vs CPU
     init_sys = run_depth_path("rgbd", rg_frames[:1], "cuda")[0]
     check_step_vs_cpu(init_sys, [img for img, _ in rg_frames[1:6]])
 
+    # the dataset runners from trees on disk
+    runner_rec = run_runner_phase(fast, smi, clean[:N_FRAMES],
+                                  poses[:N_FRAMES], rg_poses, rg_frames,
+                                  score_rec, corners_rec)
+
     t0 = time.perf_counter()
     vi_poses, vi_frames, vi_imus = vi_sequence()
     print(f"rendered {len(vi_frames)} mono-VI frames {W}x{H} with their IMU "
           f"in {time.perf_counter() - t0:.1f} s")
-    (vsys, vstates, vdebug, ready_at, secs, rec), launches = run_counted(
-        fast, "mono-VI path",
-        lambda: run_vi_path(vi_frames, vi_imus, "cuda", record=True))
-    corners_rec["launches_mono_vi"] = launches
-    score_rec["launches_mono_vi"] = fast.fast_score_map.launches
+    (vsys, vstates, vdebug, ready_at, secs, rec), fused, single = \
+        run_counted(fast, "mono-VI path", lambda: run_vi_path(
+            vi_frames, vi_imus, "cuda", record=True))
+    corners_rec["launches_mono_vi"] = fused
+    score_rec["launches_mono_vi"] = single
     print(f"mono-VI path: {len(vi_frames)} frames in {secs:.2f} s "
           f"({1e3 * secs / len(vi_frames):.2f} ms/frame mean)")
     print(f"mono-VI path ({smi}) {vsys.tracker.timer.report()}")
@@ -1725,6 +2250,7 @@ def main() -> int:
     check_vi_repeat(first, vi_frames, vi_imus)
 
     print(json.dumps({"frame_step": step_rec}))
+    print(json.dumps({"runners": runner_rec}))
     print(json.dumps({"kernels": [score_rec, corners_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,9 +58,10 @@ def test_fast_wrapper_refuses_what_the_kernel_cannot_take(cuda):
 
 
 # stacked 4-level pyramids: EuRoC (480x752 .. 60x94), TUM RGB-D (480x640
-# .. 60x80), ragged (101x137 .. 12x17) and one whose top level (5x6) is all
-# 3-px frame
-PYRAMIDS = [(480, 752), (480, 640), (101, 137), (40, 52)]
+# .. 60x80), KITTI (376x1241 .. 47x155, ragged at every level), ragged
+# (101x137 .. 12x17) and one whose top level (5x6) is all 3-px frame
+PYRAMIDS = [(480, 752), (480, 640), (376, 1241), (101, 137), (40, 52)]
+KITTI_F = 718.856
 
 
 def _stacked(img, device):
@@ -76,9 +77,10 @@ def test_fast_corners_kernel_matches_plain(cuda, shape):
     rng = np.random.default_rng(shape[0] * 1000 + shape[1])
     imgs = [rng.uniform(0, 255, shape).astype(np.float32),
             rng.integers(0, 256, shape).astype(np.float32)]
-    if shape == PYRAMIDS[0]:
-        scene = SmoothScene(seed=11, w=shape[1], h=shape[0], f=458.0,
-                            tex_size=2000)
+    if shape in ((480, 752), (376, 1241)):
+        scene = SmoothScene(seed=11, w=shape[1], h=shape[0],
+                            f=458.0 if shape[0] == 480 else KITTI_F,
+                            tex_size=2000 if shape[0] == 480 else 2400)
         imgs.append(render_u8(scene, np.eye(3), np.zeros(3)))
     for img in imgs:
         stack = _stacked(img, cuda)
@@ -473,3 +475,98 @@ def test_segment_sum_repeats_on_the_card(cuda):
                for _ in range(5))
     torch.testing.assert_close(first.cpu(), segment_sum(x, ids, 37),
                                atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_octree_extraction_on_the_card_matches_the_cpu(cuda):
+    """OrbExtractor(mode="octree") and its keyframe form on a EuRoC
+    pyramid, card against CPU: uv, level, score and valid equal, angles
+    within 1e-4, descriptors equal; one fused FAST launch per call."""
+    from ygz_tpu_torch.frontend.extractor import OrbExtractor
+    from ygz_tpu_torch.frontend.framestep import build_pyramid_stacked
+
+    scene = SmoothScene(seed=11, w=752, h=480, f=458.0, tex_size=2000)
+    img = render_u8(scene, np.eye(3), np.zeros(3))
+    ext = OrbExtractor(mode="octree")
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        pyr = build_pyramid_stacked(torch.as_tensor(img, device=dev), None, 4)
+        before = fast.fast_corner_maps.launches
+        feats = ext(pyr)
+        half = feats.valid.clone()
+        half[1::2] = False
+        ang, desc, kf = ext.extract_keyframe(pyr, feats.uv, feats.level,
+                                             half)
+        if dev.type == "cuda":
+            assert fast.fast_corner_maps.launches == before + 2
+        outs[dev.type] = [x.cpu() for x in (*feats, ang, desc, *kf)]
+    a, b = outs["cuda"], outs["cpu"]
+    for j in (0, 1, 3, 4, 5, 7, 8, 9, 11, 12, 13):
+        assert torch.equal(a[j], b[j]), j
+    for j in (2, 6, 10):
+        assert float((a[j] - b[j]).abs().max()) <= 1e-4
+    assert int(a[5].sum()) > 400
+
+
+@pytest.mark.cuda
+def test_kitti_extraction_on_the_card_matches_the_cpu(cuda):
+    """The grid extraction and its keyframe form at KITTI's 1241x376 (its
+    pyramid is ragged at every level) on three views, card against CPU:
+    uv, level, score and valid equal, angles within 1e-4, descriptors
+    equal."""
+    from ygz_tpu_torch.frontend.extractor import OrbExtractor
+    from ygz_tpu_torch.frontend.framestep import build_pyramid_stacked
+
+    scene = SmoothScene(seed=11, w=1241, h=376, f=KITTI_F, tex_size=2400)
+    ext = OrbExtractor()
+    for R, t in _sweep(3):
+        img = render_u8(scene, R, t)
+        outs = {}
+        for dev in (cuda, torch.device("cpu")):
+            pyr = build_pyramid_stacked(torch.as_tensor(img, device=dev),
+                                        None, 4)
+            feats = ext(pyr)
+            ang, desc, kf = ext.extract_keyframe(pyr, feats.uv, feats.level,
+                                                 feats.valid)
+            outs[dev.type] = [x.cpu() for x in (*feats, ang, desc, *kf)]
+        a, b = outs["cuda"], outs["cpu"]
+        for j in (0, 1, 3, 4, 5, 7, 8, 9, 11, 12, 13):
+            assert torch.equal(a[j], b[j]), j
+        for j in (2, 6, 10):
+            assert float((a[j] - b[j]).abs().max()) <= 1e-4
+        assert int(a[5].sum()) > 400
+
+
+@pytest.mark.cuda
+def test_frame_step_graph_with_a_remap_grid_replays_the_eager_step(cuda):
+    """A camera with radtan distortion (examples/mono_euroc.py's default
+    camera): the captured frame step, with the undistort remap as its
+    static grid, against the eager frame_step given the same grid, over 10
+    frames: bit-exact."""
+    from ygz_tpu_torch.examples.mono_euroc import EUROC_CAM
+    from ygz_tpu_torch.frontend.framestep import FrameCarry, frame_step
+    from ygz_tpu_torch.geometry.camera import Camera
+    from ygz_tpu_torch.system import Sensor, System
+
+    scene = SmoothScene(seed=11, w=752, h=480, f=458.0, tex_size=3000)
+    c = EUROC_CAM
+    grid = scene.distorted_grid(c["fx"], c["fy"], c["cx"], c["cy"],
+                                c["dist"])
+    frames = [np.clip(scene.render_at(R, t, grid), 0, 255).astype(np.uint8)
+              for R, t in _sweep(34)]
+    system = System(Camera.make(**c), Sensor.MONOCULAR)
+    for i, img in enumerate(frames[:24]):
+        system.track_monocular(img, i * 0.05)
+    tr = system.tracker
+    graph = tr._graph
+    assert tr.state.name == "OK" and graph.remap is not None
+    assert torch.equal(graph.remap, tr._remap)
+    cache = tr._snap[1]
+    for img in frames[24:]:
+        carry = FrameCarry(*(a.clone() for a in graph.carry))
+        new, eager = frame_step(torch.as_tensor(img, device=cuda), carry,
+                                cache, graph.no_pred, tr._remap, tr.intr)
+        graph.load(graph.carry, cache, graph.no_pred)
+        replay = graph.step(torch.as_tensor(img)).clone()
+        assert torch.equal(eager, replay)
+        assert all(torch.equal(x, y) for x, y in zip(new, graph.carry))

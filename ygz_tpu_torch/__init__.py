@@ -11,7 +11,11 @@ step, ORB extraction, two-view init, the keyframe mapping tail, BoW place
 recognition, relocalization (EPnP RANSAC) and loop closing (Sim3, essential
 graph, global BA), batched tracking (``System.track_monocular_batch``)
 and the async mapping worker; on the card the frame step is replayed as a
-captured CUDA graph. Its hand-written kernel source is the FAST-10 one
+captured CUDA graph. The JAX package's CLI surface is ported too: the
+dataset runners (``examples/``), the settings reader (``io/config.py``),
+the EuRoC, TUM RGB-D and KITTI readers (``io/datasets.py``), the PNG
+loader (``native/`` with libpng, else ``io/png.py``), the offline viewer
+(``viz.py``) and the octree keypoint mode. Its hand-written kernel source is the FAST-10 one
 (``csrc/fast_score.cu``, wrappers in ``ops/fast.py``): the extractor's
 front (both thresholds, merge, 3x3 NMS over the whole stacked pyramid in
 one launch) and the single-threshold score map, launched for CUDA tensors;

@@ -1,12 +1,13 @@
 """Multi-level ORB feature extraction.
 
-Port of ``ygz_tpu/frontend/extractor.py`` (grid mode): FAST-10 scores at
-two thresholds -> merge -> 3x3 NMS over the whole stacked pyramid (one
-launch of the CUDA kernel for CUDA tensors,
-``ops/fast.py::fast_corner_maps``), then per level grid-capped top-k -> IC
-angle -> steered BRIEF on the
-blurred level, with fixed per-level keypoint budgets. Keypoint uv is
-reported in LEVEL-0 pixels; `level` records the octave.
+Port of ``ygz_tpu/frontend/extractor.py``: FAST-10 scores at two
+thresholds -> merge -> 3x3 NMS over the whole stacked pyramid (one launch
+of the CUDA kernel for CUDA tensors, ``ops/fast.py::fast_corner_maps``),
+then per level the keypoint selector -> IC angle -> steered BRIEF on the
+blurred level, with fixed per-level keypoint budgets. The selector is the
+DSO-style grid-capped top-k (``mode="grid"``) or the quadtree-style
+``select_octree`` (``mode="octree"``, the reference's DistributeOctTree).
+Keypoint uv is reported in LEVEL-0 pixels; `level` records the octave.
 """
 from __future__ import annotations
 
@@ -45,10 +46,8 @@ class OrbExtractor:
                  fast_th_min: float = 7.0, cell: int = 16,
                  max_per_cell: int = 3, border: int = 20,
                  mode: str = "grid"):
-        if mode != "grid":
-            raise NotImplementedError(
-                "keypoint_mode='octree' (select_octree) is not ported yet: "
-                "ROADMAP queue A, item A3")
+        if mode not in ("grid", "octree"):
+            raise ValueError(f"keypoint mode {mode!r}: 'grid' or 'octree'")
         self.n_features = n_features
         self.n_levels = n_levels
         self.scale_factor = scale_factor
@@ -65,9 +64,13 @@ class OrbExtractor:
         """Keypoints of one level from its merged, suppressed corner map
         (high-threshold corners rank first; the low threshold fills cells
         the high one left empty)."""
-        uv, s, valid = select.select_grid_topk(
-            merged, cell=self.cell, max_per_cell=self.max_per_cell,
-            max_kp=budget, border=border, occupancy=occupancy)
+        if self.mode == "octree":
+            uv, s, valid = select.select_octree(
+                merged, max_kp=budget, border=border, occupancy=occupancy)
+        else:
+            uv, s, valid = select.select_grid_topk(
+                merged, cell=self.cell, max_per_cell=self.max_per_cell,
+                max_kp=budget, border=border, occupancy=occupancy)
         ang = orb.ic_angles(img, uv, valid)
         desc = orb.brief_descriptors(gaussian_blur(img, 7, 2.0), uv, ang,
                                      valid)

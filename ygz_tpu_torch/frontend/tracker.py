@@ -23,8 +23,7 @@ The sensor-fusion hooks of the JAX tracker (``_predict_pose``,
 no-op defaults here; the mono-VI subclass (``frontend/vi_tracker.py``)
 overrides them.
 
-Not ported yet (ROADMAP queue A): the octree keypoint mode (A3) and the
-distributed BA (A8).
+Not ported yet (ROADMAP queue A): the distributed BA (A8).
 """
 from __future__ import annotations
 
@@ -130,8 +129,7 @@ class State(enum.Enum):
 @dataclass
 class TrackerConfig:
     """The JAX package's tracker settings, with its defaults. The port
-    rejects (NotImplementedError) keypoint_mode 'octree' and
-    mesh_devices > 1."""
+    rejects (NotImplementedError) mesh_devices > 1."""
     n_features: int = 512
     keypoint_mode: str = "grid"
     n_levels: int = 4
@@ -169,16 +167,10 @@ class TrackerConfig:
     mesh_devices: int = 0
 
     def check_supported(self):
-        unsupported = {
-            "keypoint_mode": (self.keypoint_mode != "grid",
-                              "A3 (the octree keypoint mode)"),
-            "mesh_devices": (self.mesh_devices > 1, "A8 (distributed BA)"),
-        }
-        for name, (bad, item) in unsupported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"TrackerConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet: ROADMAP queue A, item {item}")
+        if self.mesh_devices > 1:
+            raise NotImplementedError(
+                f"TrackerConfig.mesh_devices={self.mesh_devices!r} is not "
+                f"ported yet: ROADMAP queue A, item A8 (distributed BA)")
 
 
 @dataclass

@@ -8,6 +8,8 @@ source ``csrc/fast_score.cu`` (the Hopper port of the TPU kernel
 - ``fast_corner_maps``: the extractor's front over a whole stacked pyramid
   in one launch (both thresholds, the merge and the NMS).
 
+``shi_tomasi_map`` is plain PyTorch (XLA compiled it in the JAX package).
+
 A CUDA tensor launches the kernel, a CPU tensor takes the plain PyTorch
 version (``fast_score_map_torch``, ``fast_corner_maps_torch``), anything
 else raises. Kernel and plain version give the same bits for any threshold
@@ -19,6 +21,7 @@ import ctypes
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from .image import pyramid_shapes, stack_rows, unstack_pyramid
 
@@ -71,6 +74,36 @@ def nonmax_3x3(score):
             if dx or dy:
                 neigh = torch.maximum(neigh, _shift(score, dx, dy))
     return torch.where(score >= neigh, score, torch.zeros_like(score))
+
+
+def _box(x, half_box: int):
+    """Box sum of width 2*half_box by cumulative sums along each axis, the
+    edges padded with their nearest value."""
+    k = 2 * half_box
+    c = F.pad(torch.cumsum(x, 0), (0, 0, 1, 0))
+    rows = c[k:] - c[:-k]
+    rows = F.pad(rows[None, None], (0, 0, half_box, k - half_box),
+                 mode="replicate")[0, 0]
+    c2 = F.pad(torch.cumsum(rows, 1), (1, 0))
+    out = c2[:, k:] - c2[:, :-k]
+    return F.pad(out[None, None], (half_box, k - half_box, 0, 0),
+                 mode="replicate")[0, 0]
+
+
+def shi_tomasi_map(img, half_box: int = 4):
+    """Shi-Tomasi score (min eigenvalue of the structure tensor over a
+    (2*half_box)^2 box) of the whole [H, W] image; no path calls it (the
+    reference computes it per keypoint)."""
+    dx = 0.5 * (_shift(img, 1, 0) - _shift(img, -1, 0))
+    dy = 0.5 * (_shift(img, 0, 1) - _shift(img, 0, -1))
+    sxx = _box(dx * dx, half_box)
+    syy = _box(dy * dy, half_box)
+    sxy = _box(dx * dy, half_box)
+    n = float((2 * half_box) ** 2)
+    tr = (sxx + syy) / (2 * n)
+    det = torch.sqrt(torch.clamp(((sxx - syy) / (2 * n)) ** 2
+                                 + (sxy / n) ** 2, min=0.0))
+    return tr - det
 
 
 def _kernel(name, argtypes):

@@ -1,9 +1,10 @@
 """Grid-based keypoint selection with occupancy masking (DSO-style).
 
-Port of ``ygz_tpu/ops/select.py`` (``select_octree`` is not ported yet).
-``lax.top_k`` puts the lower index first on ties, and FAST scores on u8
-frames tie often; ``torch.topk`` promises no tie order, so every top-k
-here is a stable descending sort (equal keys keep index order).
+Port of ``ygz_tpu/ops/select.py``: the grid selector and the
+quadtree-style ``select_octree``. ``lax.top_k`` puts the lower index first
+on ties, and FAST scores on u8 frames tie often; ``torch.topk`` promises
+no tie order, so every top-k here is a stable descending sort (equal keys
+keep index order).
 """
 from __future__ import annotations
 
@@ -76,3 +77,36 @@ def cell_size_for_budget(h: int, w: int, n_features: int) -> int:
     """Initial DSO grid size ~ sqrt(H*W/n), clamped to [8, 64]."""
     g = int(math.sqrt(h * w / max(n_features, 1)))
     return max(8, min(64, g))
+
+
+def select_octree(score, max_kp: int, border: int = 20, occupancy=None,
+                  min_score: float = 0.0, levels: int = 3):
+    """Quadtree-style keypoint distribution (the reference's
+    DistributeOctTree): per-cell-best selection at `levels` dyadic cell
+    sizes, coarse to fine. Every coarse cell keeps its best corner (a
+    priority of s + (levels-1-li) * 1e6 ranks coarser levels first), finer
+    levels fill the rest of the budget by score, and the pixels already
+    picked are stamped out (radius 1) before the next level. The priority is
+    exact in float32 while scores are integers below 2**24 - 2e6, as the
+    merged FAST map's are. Returns (uv [max_kp, 2], score [max_kp], valid
+    [max_kp])."""
+    H, W = score.shape
+    c_fine = cell_size_for_budget(H, W, max_kp)
+    uvs, scs, prios = [], [], []
+    occ = occupancy
+    for li in range(levels):
+        cell = c_fine * (2 ** (levels - 1 - li))
+        n_cells = ((H + cell - 1) // cell) * ((W + cell - 1) // cell)
+        uv, s, v = select_grid_topk(score, cell=cell, max_per_cell=1,
+                                    max_kp=min(max_kp, n_cells),
+                                    border=border, occupancy=occ,
+                                    min_score=min_score)
+        prios.append(torch.where(v, s + (levels - 1 - li) * 1e6,
+                                 torch.full_like(s, -1.0)))
+        uvs.append(uv)
+        scs.append(s)
+        stamp = stamp_occupancy(H, W, uv, v, radius=1)
+        occ = stamp if occ is None else (occ | stamp)
+    uv, s, prio = torch.cat(uvs), torch.cat(scs), torch.cat(prios)
+    top_p, top_i = topk_stable(prio, max_kp)
+    return uv[top_i], s[top_i], top_p > 0.0

@@ -120,6 +120,34 @@ class PlaneScene:
         """The view as a camera's u8 frame [h, w]."""
         return np.clip(self.render(R, t), 0, 255).astype(np.uint8)
 
+    def distorted_grid(self, fx, fy, cx, cy, dist, iters=100):
+        """[h, w, 2] f32: for each pixel of a camera with intrinsics (fx,
+        fy, cx, cy) and radtan distortion dist = [k1, k2, p1, p2(, k3)],
+        the point of this scene's pinhole image on the same ray (the
+        distorted normalized point undistorted by fixed-point iteration in
+        float64). Pose-independent: compute it once per camera."""
+        k1, k2, p1, p2, k3 = (list(dist) + [0.0] * 5)[:5]
+        ys, xs = np.mgrid[0: self.h, 0: self.w].astype(np.float64)
+        xd, yd = (xs - cx) / fx, (ys - cy) / fy
+        x, y = xd, yd
+        for _ in range(iters):
+            r2 = x * x + y * y
+            radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+            x, y = (xd - (x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+                          - x),
+                    yd - (y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+                          - y))
+        return np.stack([x * self.f + self.cx, y * self.f + self.cy],
+                        -1).astype(np.float32)
+
+    def render_at(self, R, t, uv):
+        """The view from (R, t) sampled at pinhole pixel positions uv
+        [..., 2] (e.g. a distorted_grid). Returns [...] f32."""
+        o_w, d_w = self._rays(R, t, uv)
+        lam = self._intersect(o_w, d_w)
+        Xw = o_w + lam[..., None] * d_w
+        return _bilinear_np(self.tex, self.world_to_tex(Xw))
+
     def render_pair(self, R, t, baseline):
         """A rectified stereo pair [h, w] f32: the left view at (R, t) and
         the right camera `baseline` along the left camera's x axis, at
