@@ -20,6 +20,17 @@ Phases (any failure raises and the script exits non-zero):
      the ground truth, every alive keyframe in the BoW index, and the frame
      step on the card against the same step on the CPU for a few frames;
   5. global BA on two copies of the final map, card vs CPU;
+  5b. the distributed global BA (parallel/dist_ba.py) on copies of that
+     map: sharded over 2 shards on the card against the dense solve (the
+     free scale taken out; test_dist_ba.py's mapper bounds scaled by the
+     ratio of the maps' extents), the same card vs CPU, the dense, 1-shard
+     and 2-shard solves timed in turns (ms and launch calls per solve);
+     two processes on the one card (parallel/worker.py, 2 shards each, a
+     gloo group over localhost carrying CUDA tensors) against the
+     in-process solve; TrackerConfig(mesh_devices=2) raising on a one-card
+     machine; then the main path again with its mapper sharded over 2
+     shards on the card (kernel launches counted on this run) and its
+     global BA through the sharded step;
   6. relocalization: black frames until LOST, then an earlier view, which
      must relocalize near its true pose and keep tracking (kernel launches
      counted on this path too);
@@ -89,6 +100,8 @@ import collections
 import contextlib
 import copy
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -140,6 +153,11 @@ BATCH, N_WARM, N_TIMED, N_TURN = 32, 48, 240, 20
 N_KITTI_FRAMES, N_DIST, N_DIST_TURN = 60, 30, 10
 # PNG decodes timed per route and kind of file
 N_PNG_TIMED = 8
+# the distributed BA phase: test_dist_ba.py's mapper bounds were set on a
+# map whose points fill [-2, 2] x [-1.5, 1.5] x [4, 9] uniformly, whose
+# 5-95% box has a diagonal of 0.9 * sqrt(50); the smoke's map scales them
+# by the ratio of the diagonals. Rotations, sharded vs dense: 0.05 deg
+DIST_TEST_EXTENT, DIST_ROT_DEG = 0.9 * float(np.sqrt(50.0)), 0.05
 
 
 def euroc_pose(i):
@@ -461,14 +479,18 @@ def euroc_camera():
     return Camera.make(F, F, W / 2.0 - 0.5, H / 2.0 - 0.5, W, H)
 
 
-def run_main_path(frames, device, cfg=None):
+def run_main_path(frames, device, cfg=None, mesh=None):
     """System.track_monocular over the frames (default TrackerConfig unless
-    given); returns (system, states, frames on which the fallback ladder
-    ran, seconds)."""
+    given; global BA sharded over `mesh` if given); returns (system,
+    states, frames on which the fallback ladder ran, seconds)."""
     from ygz_tpu_torch.system import System, Sensor
 
     system = System(euroc_camera(), Sensor.MONOCULAR, config=cfg,
                     device=device)
+    if mesh is not None:
+        # TrackerConfig(mesh_devices=N) wants N cards (checked in
+        # check_dist_ba); N shards on one card go to the mapper directly
+        system.tracker.mapper.mesh = mesh
     states, ladder = [], []
     t0 = time.perf_counter()
     for i, img in enumerate(frames):
@@ -476,6 +498,21 @@ def run_main_path(frames, device, cfg=None):
         if "fb_motion" in system.tracker.debug:
             ladder.append(i)
     return system, states, ladder, time.perf_counter() - t0
+
+
+def tracked_centres(system, poses):
+    """Camera centres of the frames tracked OK, as the map now places them,
+    and their ground truth."""
+    est, gt = [], []
+    for rec, (R, t) in zip(system.trajectory, poses):
+        if rec.state == "OK":
+            Rr, tr = system.tracker.recovered_pose(rec)
+            est.append(-Rr.T @ tr)
+            gt.append(-R.T @ t)
+    est, gt = np.array(est), np.array(gt)
+    if not np.isfinite(est).all():
+        raise RuntimeError("non-finite poses in the trajectory")
+    return est, gt
 
 
 def check_result(system, states, ladder, poses):
@@ -491,15 +528,7 @@ def check_result(system, states, ladder, poses):
     after = states[first:]
     frac_ok = sum(s == "OK" for s in after) / len(after)
     n_new_kf = system.map.n_kf - 2
-    est, gt = [], []
-    for rec, (R, t) in zip(system.trajectory, poses):
-        if rec.state == "OK":
-            Rr, tr = system.tracker.recovered_pose(rec)
-            est.append(-Rr.T @ tr)
-            gt.append(-R.T @ t)
-    est, gt = np.array(est), np.array(gt)
-    if not np.isfinite(est).all():
-        raise RuntimeError("non-finite poses in the trajectory")
+    est, gt = tracked_centres(system, poses)
     rmse, _ = ate_rmse(est, gt, with_scale=True)
     length = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
     print(f"init at frame {first}; frames OK after init: "
@@ -577,6 +606,40 @@ def check_step_vs_cpu(system, frames):
         raise RuntimeError("frame step on the card disagrees with the CPU")
 
 
+def ba_copies(system, n):
+    """n copies of the tracked map, without the pyramids global BA never
+    reads."""
+    smap = system.map
+    pyr = smap.kf_pyr
+    smap.kf_pyr = [None] * len(pyr)
+    try:
+        return [copy.deepcopy(smap) for _ in range(n)]
+    finally:
+        smap.kf_pyr = pyr
+
+
+def map_gap(a, b):
+    """How far map b is from map a over the alive keyframes and points:
+    max rotation gap (deg); the scale s taking b onto a (keyframe 0 is the
+    only fixed pose, so the monocular scale is free); translation and point
+    gaps at that scale; the raw gaps."""
+    from ygz_tpu_torch.eval.ate import rotation_angle_deg
+
+    kfs = np.nonzero(a.kf_valid[: a.n_kf])[0]
+    pts = np.nonzero(a.pt_valid[: a.n_pt])[0]
+    if not (np.isfinite(a.pt_xyz[pts]).all() and np.isfinite(a.kf_t).all()
+            and np.isfinite(b.pt_xyz[pts]).all()
+            and np.isfinite(b.kf_t).all()):
+        raise RuntimeError("global BA gave non-finite values")
+    rot = max(rotation_angle_deg(a.kf_R[k], b.kf_R[k]) for k in kfs)
+    s = float((a.kf_t[kfs] * b.kf_t[kfs]).sum() / (b.kf_t[kfs] ** 2).sum())
+    return {"rot_deg": rot, "scale": s,
+            "dt": float(np.abs(a.kf_t[kfs] - s * b.kf_t[kfs]).max()),
+            "dp": float(np.abs(a.pt_xyz[pts] - s * b.pt_xyz[pts]).max()),
+            "raw_dt": float(np.abs(a.kf_t[kfs] - b.kf_t[kfs]).max()),
+            "raw_dp": float(np.abs(a.pt_xyz[pts] - b.pt_xyz[pts]).max())}
+
+
 def check_global_ba(system):
     """Global BA on two copies of the final map, on the card and on the
     CPU: keyframe rotations within 0.01 deg; translations and points within
@@ -586,13 +649,9 @@ def check_global_ba(system):
     it up to ~1e-3 apart, which alone moves a point 2 units out by 2e-3;
     the scale must agree within 1e-2."""
     from ygz_tpu_torch.backend.mapping import LocalMapper
-    from ygz_tpu_torch.eval.ate import rotation_angle_deg
 
     smap = system.map
-    pyr = smap.kf_pyr
-    smap.kf_pyr = [None] * len(pyr)        # global BA reads no pyramid
-    maps = [copy.deepcopy(smap), copy.deepcopy(smap)]
-    smap.kf_pyr = pyr
+    maps = ba_copies(system, 2)
     ms = []
     for dev, m in zip(("cuda", "cpu"), maps):
         mapper = LocalMapper(system.cam, device=dev)
@@ -600,25 +659,228 @@ def check_global_ba(system):
         mapper.global_ba(m)
         ms.append(1e3 * (time.perf_counter() - t0))
     a, b = maps
-    kfs = np.nonzero(a.kf_valid[: a.n_kf])[0]
+    gap = map_gap(a, b)
     pts = np.nonzero(a.pt_valid[: a.n_pt])[0]
-    if not (np.isfinite(a.pt_xyz[pts]).all() and np.isfinite(a.kf_t).all()):
-        raise RuntimeError("global BA on the card gave non-finite values")
-    rot = max(rotation_angle_deg(a.kf_R[k], b.kf_R[k]) for k in kfs)
-    raw = (float(np.abs(a.kf_t[kfs] - b.kf_t[kfs]).max()),
-           float(np.abs(a.pt_xyz[pts] - b.pt_xyz[pts]).max()))
-    # the one free gauge: the scale taking the CPU map onto the card map
-    s = float((a.kf_t[kfs] * b.kf_t[kfs]).sum() / (b.kf_t[kfs] ** 2).sum())
-    dt = float(np.abs(a.kf_t[kfs] - s * b.kf_t[kfs]).max())
-    dp = float(np.abs(a.pt_xyz[pts] - s * b.pt_xyz[pts]).max())
     moved = float(np.abs(a.pt_xyz[pts] - smap.pt_xyz[pts]).max())
-    print(f"global BA ({len(kfs)} keyframes, {len(pts)} points): card "
+    print(f"global BA ({int(a.kf_valid[: a.n_kf].sum())} keyframes, "
+          f"{len(pts)} points): card "
           f"{ms[0]:.2f} ms, CPU {ms[1]:.2f} ms; card vs CPU: rotation "
-          f"{rot:.2e} deg; scale card/CPU {s:.7f}; at that scale "
-          f"translation {dt:.2e}, points {dp:.2e} (raw {raw[0]:.2e}, "
-          f"{raw[1]:.2e}; points moved up to {moved:.2e})")
-    if rot > 0.01 or abs(s - 1.0) > 1e-2 or dt > 1e-3 or dp > 1e-3:
+          f"{gap['rot_deg']:.2e} deg; scale card/CPU {gap['scale']:.7f}; at "
+          f"that scale translation {gap['dt']:.2e}, points {gap['dp']:.2e} "
+          f"(raw {gap['raw_dt']:.2e}, {gap['raw_dp']:.2e}; points moved up "
+          f"to {moved:.2e})")
+    if (gap["rot_deg"] > 0.01 or abs(gap["scale"] - 1.0) > 1e-2
+            or gap["dt"] > 1e-3 or gap["dp"] > 1e-3):
         raise RuntimeError("global BA on the card disagrees with the CPU")
+
+
+def timed_global_ba(mapper, smap):
+    """Host ms of one global BA on the card (it ends on its readback)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapper.global_ba(smap)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def run_workers(n_proc, device, timeout=300):
+    """The multi-process distributed BA: n_proc processes of
+    ygz_tpu_torch/parallel/worker.py (two shards each) joined by a gloo
+    group over localhost. Returns process 0's (total chi2, kf_t [P, 3], ms
+    per solve, launch calls per solve); kills what it started on the way
+    out."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ygz_tpu_torch.parallel.worker",
+         f"127.0.0.1:{port}", str(n_proc), str(i), "--device", device],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(n_proc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p.communicate(timeout=timeout), p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for (_, err), rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"a worker failed (rc {rc}):\n{err[-3000:]}")
+    lines = [ln.split() for (out, _), _ in outs for ln in out.splitlines()
+             if ln.strip()]
+    res = [ln for ln in lines if ln[0] == "RESULT"]
+    tim = [ln for ln in lines if ln[0] == "TIMING"]
+    if len(res) != 1 or len(tim) != 1:
+        raise RuntimeError(f"the workers printed {res} {tim}")
+    return (float(res[0][1]),
+            np.array([float(v) for v in res[0][2:]]).reshape(-1, 3),
+            float(tim[0][1]), int(tim[0][2]))
+
+
+def check_dist_ba(fast, smi, system, frames, poses, states):
+    """The distributed global BA on the card (parallel/dist_ba.py), on
+    copies of the main path's final map:
+    (a) sharded over 2 shards on the card against the dense solve, the
+        free scale taken out as in check_global_ba, to test_dist_ba.py's
+        mapper bounds (keyframe translations 2e-3, points 2e-2) scaled by
+        the ratio of the maps' extents, rotations within DIST_ROT_DEG;
+        the dense, 1-shard and 2-shard solves timed in turns (host ms and
+        launch calls per solve), each form repeating bit for bit;
+    (b) the same 2-shard solve on the CPU: check_global_ba's bounds;
+    (c) two processes on the one card (parallel/worker.py, 2 shards each,
+        gloo carrying CUDA tensors through the host) against the
+        in-process 4-shard card solve of the same problem (bit for bit or
+        not) and the 2-shard one: kf_t within 1e-4, chi2 within 1%;
+    (d) TrackerConfig(mesh_devices=2) raising the JAX package's ValueError
+        where one card is visible;
+    (e) the main path again with its mapper sharded over 2 shards on the
+        card (FAST launches counted afresh), then its global BA through
+        the sharded step: the states of the main path, ATE < 3% after.
+    Returns the numbers and the run's (fused, single) FAST launches."""
+    import torch
+    from ygz_tpu_torch.backend.mapping import LocalMapper
+    from ygz_tpu_torch.eval.ate import ate_rmse
+    from ygz_tpu_torch.frontend.tracker import TrackerConfig
+    from ygz_tpu_torch.parallel import worker
+    from ygz_tpu_torch.parallel.dist_ba import Mesh
+    from ygz_tpu_torch.system import Sensor, System
+    from ygz_tpu_torch.utils.profiling import launch_calls
+
+    cam = system.cam
+    card = torch.device("cuda", 0)
+    mappers = {"dense": LocalMapper(cam, device="cuda"),
+               "1-shard": LocalMapper(cam, device="cuda", mesh=Mesh([card])),
+               "2-shard": LocalMapper(cam, device="cuda",
+                                      mesh=Mesh([card, card]))}
+    order = ["dense", "1-shard", "2-shard", "2-shard", "1-shard", "dense"]
+    maps = ba_copies(system, len(order) + 4)
+    ms, solved = collections.defaultdict(list), collections.defaultdict(list)
+    for label, m in zip(order, maps):
+        ms[label].append(timed_global_ba(mappers[label], m))
+        solved[label].append(m)
+    calls = {}
+    for label, m in zip(mappers, maps[len(order):]):
+        calls[label] = launch_calls(lambda: mappers[label].global_ba(m))
+    repeats = {label: all(np.array_equal(getattr(a, f), getattr(b, f))
+                          for f in ("kf_R", "kf_t", "pt_xyz"))
+               for label, (a, b) in solved.items()}
+    a, b = solved["2-shard"][0], solved["dense"][0]
+    pts = a.pt_xyz[np.nonzero(a.pt_valid[: a.n_pt])[0]]
+    lo, hi = np.percentile(pts, [5, 95], axis=0)
+    ratio = float(np.linalg.norm(hi - lo)) / DIST_TEST_EXTENT
+    gap = map_gap(a, b)
+    t_tol, p_tol = 2e-3 * ratio, 2e-2 * ratio
+    print(f"distributed BA ({smi}): {len(pts)} points, extent "
+          f"(5-95% box diagonal) {ratio:.4f}x test_dist_ba.py's map; "
+          f"2-shard vs dense: rotation {gap['rot_deg']:.2e} deg, scale "
+          f"{gap['scale']:.7f}, at that scale translation {gap['dt']:.2e} "
+          f"(bound {t_tol:.2e}), points {gap['dp']:.2e} (bound "
+          f"{p_tol:.2e}); raw {gap['raw_dt']:.2e}, {gap['raw_dp']:.2e}")
+    print(f"distributed BA in turns {order}: host ms per solve "
+          f"{[round(ms[lb][order[:i].count(lb)], 2) for i, lb in enumerate(order)]}; "
+          f"launch calls per solve {calls}; repeats bit for bit {repeats}")
+    if (gap["rot_deg"] > DIST_ROT_DEG or abs(gap["scale"] - 1.0) > 1e-2
+            or gap["dt"] > t_tol or gap["dp"] > p_tol):
+        raise RuntimeError("the sharded global BA disagrees with the dense "
+                           "one")
+    if not all(repeats.values()):
+        raise RuntimeError(f"a global BA did not repeat: {repeats}")
+
+    # (b) the 2-shard solve, card against CPU
+    cpu_map = maps[-1]
+    cpu_ms = timed_global_ba(LocalMapper(cam, device="cpu",
+                                         mesh=Mesh(["cpu", "cpu"])), cpu_map)
+    gap_cpu = map_gap(a, cpu_map)
+    print(f"2-shard global BA card vs CPU (CPU {cpu_ms:.1f} ms): rotation "
+          f"{gap_cpu['rot_deg']:.2e} deg, scale {gap_cpu['scale']:.7f}, "
+          f"translation {gap_cpu['dt']:.2e}, points {gap_cpu['dp']:.2e} "
+          f"(raw {gap_cpu['raw_dt']:.2e}, {gap_cpu['raw_dp']:.2e})")
+    if (gap_cpu["rot_deg"] > 0.01 or abs(gap_cpu["scale"] - 1.0) > 1e-2
+            or gap_cpu["dt"] > 1e-3 or gap_cpu["dp"] > 1e-3):
+        raise RuntimeError("the sharded global BA on the card disagrees "
+                           "with the CPU")
+
+    # (c) two processes on the one card against the in-process solves
+    t0 = time.perf_counter()
+    chi2_mp, kf_t_mp, mp_ms, mp_calls = run_workers(2, "cuda")
+    wall = time.perf_counter() - t0
+    run4, r4 = worker.solve(Mesh([card] * 4))
+    _, r2 = worker.solve(Mesh([card] * 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run4()
+    torch.cuda.synchronize()
+    ms4, calls4 = 1e3 * (time.perf_counter() - t0), launch_calls(run4)
+    kf4, kf2 = r4.kf_t.cpu().numpy(), r2.kf_t.cpu().numpy()
+    exact = bool(np.array_equal(kf_t_mp, kf4)
+                 and chi2_mp == float(r4.total_chi2))
+    d2 = float(np.abs(kf_t_mp - kf2).max())
+    c2 = abs(chi2_mp - float(r2.total_chi2)) / max(float(r2.total_chi2), 1.0)
+    print(f"two processes x 2 shards on one card (gloo, CUDA tensors; "
+          f"{wall:.1f} s with start-up): {mp_ms:.2f} ms and {mp_calls} "
+          f"launch calls per solve in process 0, against in-process 4 "
+          f"shards {ms4:.2f} ms, {calls4} calls; equal to the in-process "
+          f"4-shard solve bit for bit: {exact} (max |dkf_t| "
+          f"{float(np.abs(kf_t_mp - kf4).max()):.2e}); against 2 shards: "
+          f"kf_t {d2:.2e}, chi2 {c2:.2e} relative")
+    if not (np.abs(kf_t_mp - kf4).max() <= 1e-4 and d2 <= 1e-4
+            and c2 < 0.01):
+        raise RuntimeError("the two-process solve disagrees with the "
+                           "in-process one")
+
+    # (d) the tracker's mesh wants one card per shard
+    n_cards = torch.cuda.device_count()
+    try:
+        System(cam, Sensor.MONOCULAR,
+               config=TrackerConfig(mesh_devices=n_cards + 1))
+    except ValueError as e:
+        print(f"TrackerConfig(mesh_devices={n_cards + 1}) with {n_cards} "
+              f"card(s) visible raises: {e}")
+        if str(e) != (f"mesh_devices={n_cards + 1} but only {n_cards} "
+                      f"devices visible"):
+            raise
+    else:
+        raise RuntimeError("mesh_devices beyond the visible cards did not "
+                           "raise")
+
+    # (e) the main path with its global BA sharded
+    (dsys, dstates, _, secs), fused, single = run_counted(
+        fast, "main path, mapper sharded over 2 shards on the card",
+        lambda: run_main_path(frames, "cuda", mesh=Mesh([card, card])))
+    mapper = dsys.tracker.mapper
+    est, gt = tracked_centres(dsys, poses)
+    before = ate_rmse(est, gt, with_scale=True)[0]
+    gba_ms = timed_global_ba(mapper, dsys.map)
+    est, gt = tracked_centres(dsys, poses)
+    after = ate_rmse(est, gt, with_scale=True)[0]
+    length = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    same = dstates == states
+    print(f"main path with the sharded mapper: {len(frames)} frames in "
+          f"{secs:.2f} s, {dstates.count('OK')} OK, states equal to the "
+          f"main path's: {same}; global BA through the sharded step "
+          f"{gba_ms:.2f} ms (steps cached {list(mapper._dist_ba_cache)}); "
+          f"ATE {before:.5f} -> {after:.5f} over {length:.3f} "
+          f"({100 * after / length:.3f}%)")
+    if not mapper._dist_ba_cache:
+        raise RuntimeError("global BA did not dispatch the sharded step")
+    if dstates[-1] != "OK" or not after < 0.03 * length:
+        raise RuntimeError("the main path with the sharded mapper failed")
+    rec = {"ms": {k: v for k, v in ms.items()}, "calls": calls,
+           "vs_dense": gap, "extent_ratio": ratio, "card_vs_cpu": gap_cpu,
+           "two_process": {"ms": mp_ms, "calls": mp_calls, "exact": exact,
+                           "kf_t_vs_2_shard": d2, "chi2_vs_2_shard": c2},
+           "in_process_4_shard": {"ms": ms4, "calls": calls4},
+           "main_path": {"ate_before": before, "ate_after": after,
+                         "gba_ms": gba_ms, "states_equal": same}}
+    return rec, fused, single
 
 
 def check_relocalization(system, frames, poses, align, length):
@@ -1302,6 +1564,7 @@ def check_graph_vs_eager(system, frames, profiled=True):
     from torch.profiler import ProfilerActivity, profile
     from ygz_tpu_torch.frontend.framestep import (FrameCarry, frame_step,
                                                   unpack_out)
+    from ygz_tpu_torch.utils.profiling import LAUNCH_CALLS
 
     tr = system.tracker
     graph = tr._graph
@@ -1359,9 +1622,7 @@ def check_graph_vs_eager(system, frames, profiled=True):
         ev = prof.key_averages()
         calls = collections.Counter()
         for e in ev:
-            if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
-                                 "cudaGraphLaunch", "cudaMemcpy",
-                                 "cudaMemset")):
+            if e.key.startswith(LAUNCH_CALLS):
                 calls[e.key] += e.count
         dev = sorted((e for e in ev
                       if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -2192,6 +2453,10 @@ def main() -> int:
     align, length = check_result(system, states, ladder, poses[:N_FRAMES])
     check_step_vs_cpu(system, frames[N_FRAMES:])
     check_global_ba(system)
+    dist_rec, fused, single = check_dist_ba(
+        fast, smi, system, frames[:N_FRAMES], poses[:N_FRAMES], states)
+    corners_rec["launches_dist_ba"] = fused
+    score_rec["launches_dist_ba"] = single
     (corners_rec["launches_relocalization"],
      score_rec["launches_relocalization"]) = check_relocalization(
         system, frames, poses, align, length)
@@ -2250,6 +2515,7 @@ def main() -> int:
     check_vi_repeat(first, vi_frames, vi_imus)
 
     print(json.dumps({"frame_step": step_rec}))
+    print(json.dumps({"dist_ba": dist_rec}))
     print(json.dumps({"runners": runner_rec}))
     print(json.dumps({"kernels": [score_rec, corners_rec]}))
     print(json.dumps({"ok": True, "device": {

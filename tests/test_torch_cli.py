@@ -236,9 +236,16 @@ def test_mono_euroc_vins_runner(vi_tree, tmp_path, capsys):
     assert _rows(nav).shape[1] == 17
 
 
-def test_runner_refusals(mono_tree):
-    with pytest.raises(NotImplementedError, match="A8"):
-        mono_euroc.main([mono_tree, "--devices", "2", "--device", "cpu"])
+def test_runner_refusals(mono_tree, tmp_path):
+    # --devices 2 with --device cpu: the global BA sharded over two CPU
+    # shards (the distributed BA is ported)
+    system, _ = mono_euroc.main([mono_tree, "--devices", "2", "--device",
+                                 "cpu", "--out", str(tmp_path / "t.txt")])
+    mapper = system.tracker.mapper
+    assert mapper.mesh.size == 2 and system.tracker.cfg.mesh_devices == 2
+    assert _states(system)[-1] == "OK"
+    mapper.global_ba(system.map)
+    assert mapper._dist_ba_cache, "the sharded step did not dispatch"
     if not torch.cuda.is_available():
         # no fallback to the CPU: --device cuda (the default) raises
         with pytest.raises(RuntimeError, match="no CUDA device"):

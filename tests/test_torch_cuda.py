@@ -570,3 +570,24 @@ def test_frame_step_graph_with_a_remap_grid_replays_the_eager_step(cuda):
         replay = graph.step(torch.as_tensor(img)).clone()
         assert torch.equal(eager, replay)
         assert all(torch.equal(x, y) for x, y in zip(new, graph.carry))
+
+
+@pytest.mark.cuda
+def test_dist_ba_on_the_card_matches_the_cpu_and_repeats(cuda):
+    """The distributed BA step with 2 shards on one card against 2 shards on
+    the CPU (parallel/worker.py's problem): kf_t within 1e-4, chi2 within
+    1%; a second card solve bit for bit; 1 and 2 card shards agree."""
+    from ygz_tpu_torch.parallel.dist_ba import Mesh
+    from ygz_tpu_torch.parallel.worker import solve
+
+    run, card = solve(Mesh([cuda, cuda]))
+    again = run()
+    _, cpu = solve(Mesh(["cpu", "cpu"]))
+    _, one = solve(Mesh([cuda]))
+    assert card.kf_t.device.type == "cuda"
+    assert torch.equal(card.kf_t, again.kf_t)
+    assert torch.equal(card.points, again.points)
+    for other in (cpu, one):
+        assert (card.kf_t.cpu() - other.kf_t.cpu()).abs().max() < 1e-4
+        assert abs(float(card.total_chi2) - float(other.total_chi2)) \
+            < 0.01 * float(other.total_chi2)

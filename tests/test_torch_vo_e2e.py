@@ -58,9 +58,11 @@ def test_port_mono_vo_30_frames(tmp_path):
 def test_port_rejects_unported_settings():
     scene = SmoothScene(seed=0, w=64, h=48, f=40.0, tex_size=64)
     cam = Camera.make(scene.f, scene.f, scene.cx, scene.cy, scene.w, scene.h)
-    with pytest.raises(NotImplementedError, match="A8"):
-        System(cam, Sensor.MONOCULAR, config=TrackerConfig(mesh_devices=2),
-               device="cpu")
+    # the distributed BA is ported: mesh_devices=2 on the CPU shards the
+    # mapper's global BA over two CPU shards
+    mesh = System(cam, Sensor.MONOCULAR, config=TrackerConfig(mesh_devices=2),
+                  device="cpu").tracker.mapper.mesh
+    assert mesh.size == 2 and [d.type for d in mesh.devices] == ["cpu"] * 2
     # mono-VI is ported: the VI tracker, with the rig and its settings
     Tbc = np.eye(4, dtype=np.float32)
     Tbc[:3, 3] = [0.02, 0.0, -0.01]

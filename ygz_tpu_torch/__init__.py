@@ -15,7 +15,12 @@ captured CUDA graph. The JAX package's CLI surface is ported too: the
 dataset runners (``examples/``), the settings reader (``io/config.py``),
 the EuRoC, TUM RGB-D and KITTI readers (``io/datasets.py``), the PNG
 loader (``native/`` with libpng, else ``io/png.py``), the offline viewer
-(``viz.py``) and the octree keypoint mode. Its hand-written kernel source is the FAST-10 one
+(``viz.py``) and the octree keypoint mode, and the distributed global BA
+(``parallel/``: ``TrackerConfig(mesh_devices=N)``, the runners' ``--devices
+N``, and multi-process jobs over ``torch.distributed``). Every module of
+the JAX package has its twin here (the Pallas kernel's is the CUDA source
+below), but for the TPU link's machinery. Its hand-written kernel source
+is the FAST-10 one
 (``csrc/fast_score.cu``, wrappers in ``ops/fast.py``): the extractor's
 front (both thresholds, merge, 3x3 NMS over the whole stacked pyramid in
 one launch) and the single-threshold score map, launched for CUDA tensors;

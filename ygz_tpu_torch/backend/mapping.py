@@ -1,8 +1,8 @@
 """Local mapping: triangulation of new points, fusion, local BA, culling.
 
-Port of ``ygz_tpu/backend/mapping.py::LocalMapper`` for the monocular
-keyframe tail and the global BA after a loop closure (the distributed
-global BA, ``_global_ba_dist``, is not ported yet).
+Port of ``ygz_tpu/backend/mapping.py::LocalMapper``: the keyframe tail
+and the global BA after a loop closure, dense or, with a mesh, through the
+landmark-block-sharded distributed step (``parallel/dist_ba.py``).
 The map stays host-resident numpy (``backend/mapstate.py``); each step
 moves the rows it needs to ``self.device``, runs batched tensor numerics,
 and writes the results back.
@@ -144,11 +144,16 @@ class LocalMapper:
     FUSE_TARGETS = 6    # target-axis bucket for the batched fuse
 
     def __init__(self, cam, n_levels: int = 4, window: int = 6,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cam = cam
         self.n_levels = n_levels
         self.window = window
         self.device = torch.device(device)
+        # optional parallel.dist_ba.Mesh: global BA shards its landmark
+        # axis across it, one step per (P, L, O_shard, phases) bucket in
+        # _dist_ba_cache. None: the dense solve on self.device.
+        self.mesh = mesh
+        self._dist_ba_cache = {}
         self.K = cam.K.numpy()
         self.K_dev = cam.K.to(self.device)
         self.intr = (cam.fx, cam.fy, cam.cx, cam.cy)
@@ -465,11 +470,18 @@ class LocalMapper:
         obs_is2[:n_o] = 0.25 ** o_lvl
         obs_valid[:n_o] = True
 
-        t = self._t
-        res = local_bundle_adjustment(
-            t(kfR), t(kft), t(fixed), t(pts), t(ptv), t(obs_p), t(obs_l),
-            t(obs_uv), t(obs_is2), t(obs_valid), self.intr, n_poses=P,
-            n_points=L, phases=tuple(phases), obs_ur=t(obs_ur), bf=self.bf)
+        if self.mesh is not None:
+            res = self._global_ba_dist(kfR, kft, fixed, pts, ptv, obs_p,
+                                       obs_l, obs_uv, obs_ur,
+                                       obs_is2 * obs_valid, P, L,
+                                       phases=tuple(phases))
+        else:
+            t = self._t
+            res = local_bundle_adjustment(
+                t(kfR), t(kft), t(fixed), t(pts), t(ptv), t(obs_p),
+                t(obs_l), t(obs_uv), t(obs_is2), t(obs_valid), self.intr,
+                n_poses=P, n_points=L, phases=tuple(phases),
+                obs_ur=t(obs_ur), bf=self.bf)
         newR = res.kf_R.cpu().numpy()
         newt = res.kf_t.cpu().numpy()
         for i, k in enumerate(kfs[:P]):
@@ -478,7 +490,41 @@ class LocalMapper:
         smap.pt_xyz[pt_ids] = res.points.cpu().numpy()[: len(pt_ids)]
         smap.sync_ref_poses()
 
+    def _global_ba_dist(self, kfR, kft, fixed, pts, ptv, obs_p, obs_l,
+                        obs_uv, obs_ur, obs_w, P, L, phases=(10, 10)):
+        """Landmark-block-sharded global BA over self.mesh (one step per
+        (P, L, O_shard, phases) bucket). Stereo/RGB-D 3-row edges and the
+        phased chi2-outlier drops are first-class, as in the dense solve."""
+        from ..parallel.dist_ba import (make_distributed_ba,
+                                        partition_obs_by_landmark)
+
+        n_dev = self.mesh.size
+        obs_w = obs_w.astype(np.float32)
+        op, ol, ouv, our, ow, O_shard = partition_obs_by_landmark(
+            obs_p, obs_l, obs_uv, obs_w, L, n_dev, obs_ur=obs_ur)
+        Ob = _bucket(O_shard, [1024, 2048, 4096, 8192, 16384, 32768])
+        if Ob != O_shard:
+            op, ol, ouv, our, ow, O_shard = partition_obs_by_landmark(
+                obs_p, obs_l, obs_uv, obs_w, L, n_dev, pad_to=Ob,
+                obs_ur=obs_ur)
+        key = (P, L, O_shard, tuple(phases))
+        if key not in self._dist_ba_cache:
+            self._dist_ba_cache[key] = make_distributed_ba(
+                self.mesh, n_poses=P, n_points=L, phases=tuple(phases))
+        return self._dist_ba_cache[key](
+            kfR, kft, ~fixed, pts, ptv, op, ol, ouv, our, ow,
+            tuple(np.float32(v) for v in self.intr), np.float32(self.bf))
+
     # ------------------------------------------------------------------ fuse
+    def bind_map_points(self, smap: SlamMap, kf: int, radius: float = 4.0):
+        """Project local-map points into the new KF; bind matches on unbound
+        features and fuse duplicates on bound ones (the point with fewer
+        observations merges into the stronger; reference SearchInNeighbors
+        -> ORBmatcher::Fuse + MapPoint::Replace)."""
+        win = smap.local_window(kf, self.window + 4)
+        pts = smap.points_in_kfs([k for k in win if k != kf])
+        return self.project_and_fuse(smap, kf, pts, radius=radius)
+
     def search_in_neighbors(self, smap: SlamMap, kf: int,
                             radius: float = 4.0, n_direct: int = 10,
                             n_hop2: int = 5, n_reverse: int = 5):

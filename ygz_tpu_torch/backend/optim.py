@@ -82,6 +82,38 @@ def tdist_weight(chi2, dof=TDIST_DOF):
     return (dof + 1.0) / (dof + chi2)
 
 
+def mad_scale(res, valid):
+    """Median-absolute-deviation scale: 1.4826 * median(|r - median(r)|)
+    over the valid entries (RobustCost.h MADScaleEstimator)."""
+    big = torch.full_like(res, 1e30)
+    n = torch.clamp(valid.sum(), min=1)
+    med_idx = ((n - 1) // 2)[None]
+    med = torch.sort(torch.where(valid, res, big)).values.gather(0, med_idx)
+    ad = torch.where(valid, (res - med).abs(), big)
+    return 1.4826 * torch.sort(ad).values.gather(0, med_idx)[0]
+
+
+def normal_scale(res, valid):
+    """Standard deviation of the valid residuals (NormalDistributionScale)."""
+    w = valid.to(res.dtype)
+    n = torch.clamp(w.sum(), min=1.0)
+    mu = (res * w).sum() / n
+    return torch.sqrt(((res - mu) ** 2 * w).sum() / n)
+
+
+def tdist_scale(res, valid, dof=TDIST_DOF, iters: int = 10):
+    """t-distribution scale by a fixed number of fixed-point iterations
+    (RobustCost.h TDistributionScaleEstimator)."""
+    w = valid.to(res.dtype)
+    n = torch.clamp(w.sum(), min=1.0)
+    r2 = res * res
+    s2 = torch.ones((), dtype=res.dtype, device=res.device)
+    for _ in range(iters):
+        lam = (dof + 1.0) / (dof + r2 / torch.clamp(s2, min=1e-12))
+        s2 = (lam * r2 * w).sum() / n
+    return torch.sqrt(s2)
+
+
 def robust_weight(chi2, kind: str = "huber", delta2=CHI2_MONO):
     """IRLS weight by kernel name ('unit' | 'huber' | 'tukey' | 'tdist')."""
     if kind == "unit":

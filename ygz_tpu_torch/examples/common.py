@@ -31,8 +31,9 @@ def base_parser(desc):
                         "(the reference's Pangolin viewer, offline)")
     p.add_argument("--devices", type=int, default=0,
                    help="shard global bundle adjustment over the first N "
-                        "devices (not ported yet: ROADMAP queue A, item A8; "
-                        "0/1 = single device)")
+                        "devices (landmark-block sharded distributed BA; "
+                        "0/1 = single device; with --device cpu, N shards "
+                        "on the CPU)")
     p.add_argument("--batch", type=int, default=0,
                    help="microbatch size for tracking (frames per chunk; "
                         "0 = per-frame)")

@@ -15,15 +15,14 @@ tracking fails, the feature fallback ladder (motion model -> reference KF
 -> feature local map) runs before the tracker declares itself LOST; a LOST
 tracker relocalizes through BoW candidates and EPnP RANSAC. Each keyframe
 is indexed for place recognition and tested for a loop; an accepted loop is
-corrected through the Sim3 essential graph, then a global BA.
+corrected through the Sim3 essential graph, then a global BA (sharded over
+``mesh_devices`` shards, parallel/dist_ba.py, when that is > 1).
 
 The sensor-fusion hooks of the JAX tracker (``_predict_pose``,
 ``_on_vision_failed``, ``_fuse_pose``, ``_kf_time_gap``,
 ``_on_keyframe_created``, ``_run_local_ba``, ``_cull_keyframes``) keep their
 no-op defaults here; the mono-VI subclass (``frontend/vi_tracker.py``)
 overrides them.
-
-Not ported yet (ROADMAP queue A): the distributed BA (A8).
 """
 from __future__ import annotations
 
@@ -51,6 +50,7 @@ from ..geometry.twoview import two_view_reconstruct
 from ..ops import matching
 from ..ops.image import level0
 from ..ops.stereo import stereo_match_features
+from ..parallel.dist_ba import Mesh
 from ..utils.profiling import StageTimer
 from .extractor import OrbExtractor
 from .framestep import (build_pyramid_stacked, frame_step, frame_step_batch,
@@ -128,8 +128,7 @@ class State(enum.Enum):
 
 @dataclass
 class TrackerConfig:
-    """The JAX package's tracker settings, with its defaults. The port
-    rejects (NotImplementedError) mesh_devices > 1."""
+    """The JAX package's tracker settings, with its defaults."""
     n_features: int = 512
     keypoint_mode: str = "grid"
     n_levels: int = 4
@@ -164,13 +163,10 @@ class TrackerConfig:
     # the snapshot that held before chunk N's keyframes were consumed, so
     # keyframe/mapping effects lag up to (pipeline_depth - 1) more chunks
     pipeline_depth: int = 2
+    # distributed bundle adjustment: shard global BA over N shards
+    # (landmark-block sharding, parallel/dist_ba.py): the first N cards of
+    # a CUDA tracker, N shards on the CPU for a CPU one. 0/1 = dense.
     mesh_devices: int = 0
-
-    def check_supported(self):
-        if self.mesh_devices > 1:
-            raise NotImplementedError(
-                f"TrackerConfig.mesh_devices={self.mesh_devices!r} is not "
-                f"ported yet: ROADMAP queue A, item A8 (distributed BA)")
 
 
 @dataclass
@@ -192,7 +188,6 @@ class MonoTracker:
                  device="cuda"):
         self.cam = cam
         self.cfg = cfg or TrackerConfig()
-        self.cfg.check_supported()
         self.device = torch.device(device)
         self.intr = (cam.fx, cam.fy, cam.cx, cam.cy)
         self.extractor = OrbExtractor(
@@ -200,9 +195,20 @@ class MonoTracker:
             scale_factor=self.cfg.scale_factor, fast_th=self.cfg.fast_th,
             fast_th_min=self.cfg.fast_th_min, mode=self.cfg.keypoint_mode)
         self.map = SlamMap(max_feat=1024)
+        mesh = None
+        n = self.cfg.mesh_devices
+        if n and n > 1:
+            if self.device.type == "cuda":
+                k = torch.cuda.device_count()
+                if k < n:
+                    raise ValueError(f"mesh_devices={n} but only {k} "
+                                     f"devices visible")
+                mesh = Mesh([torch.device("cuda", i) for i in range(n)])
+            else:
+                mesh = Mesh([self.device] * n)
         self.mapper = LocalMapper(cam, n_levels=self.cfg.n_levels,
                                   window=self.cfg.ba_window,
-                                  device=self.device)
+                                  device=self.device, mesh=mesh)
         self.state = State.NOT_INITIALIZED
         self.frame_id = -1
         self.trajectory: list[FrameRecord] = []

@@ -107,3 +107,11 @@ def undistort_remap_grid(cam: Camera, device="cuda"):
     xn = torch.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy], -1)
     xd = distort_normalized(cam, xn)
     return cam.fx * xd[..., 0] + cam.cx, cam.fy * xd[..., 1] + cam.cy
+
+
+def scale_camera(cam: Camera, scale: float) -> Camera:
+    """Camera for a pyramid level scaled by `scale` (< 1 shrinks)."""
+    return Camera(cam.fx * scale, cam.fy * scale,
+                  (cam.cx + 0.5) * scale - 0.5, (cam.cy + 0.5) * scale - 0.5,
+                  int(round(cam.width * scale)),
+                  int(round(cam.height * scale)), cam.dist, cam.bf * scale)

@@ -115,6 +115,21 @@ def so3_log_safe(R, tiny=1e-12):
     return v * (torch.atan2(s, c) / s)[..., None]
 
 
+def so3_right_jacobian_inv(w):
+    """Inverse of the right Jacobian J_r of SO(3)."""
+    theta2 = (w * w).sum(-1)[..., None, None]
+    W = hat(w)
+    small = theta2 < _EPS
+    x = _sqrt_big(theta2, small)
+    one = torch.ones_like(theta2)
+    # 1/x^2 - (1 + cos x)/(2 x sin x), Taylor: 1/12 + x^2/720
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                       1.0 / torch.where(small, one, theta2)
+                       - (1.0 + torch.cos(x))
+                       / torch.where(small, one, 2.0 * x * torch.sin(x)))
+    return _eye3(w) + 0.5 * W + coef * (W @ W)
+
+
 def _left_jacobian_inv(w):
     theta2 = (w * w).sum(-1)[..., None, None]
     W = hat(w)
@@ -144,3 +159,68 @@ def se3_log(R, t):
 def se3_mul(Ra, ta, Rb, tb):
     """Compose (Ra, ta) * (Rb, tb)."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def se3_inv(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_apply(R, t, X):
+    """Apply the transform (R [3, 3], t [3]) to points X [..., 3]."""
+    return X @ R.T + t
+
+
+def se3_matrix(R, t):
+    """(R [..., 3, 3], t [..., 3]) -> homogeneous [..., 4, 4]."""
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype,
+                         device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([torch.cat([R, t[..., None]], -1), bottom], -2)
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (storage / trajectory IO; TUM rows are [x y z qx qy qz qw])
+
+def rotmat_to_quat(R):
+    """[..., 3, 3] -> unit quaternion [..., 4] = [w, x, y, z] (Shepperd's
+    method: the four constructions, picked by the largest pivot with
+    where, so nothing branches on data). Any float dtype."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 0.5
+
+    qw0 = half_sqrt(1.0 + tr)
+    q0 = torch.stack([qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0)], -1)
+    qx1 = half_sqrt(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / (4 * qx1), qx1, (m01 + m10) / (4 * qx1),
+                      (m02 + m20) / (4 * qx1)], -1)
+    qy2 = half_sqrt(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m02 - m20) / (4 * qy2), (m01 + m10) / (4 * qy2), qy2,
+                      (m12 + m21) / (4 * qy2)], -1)
+    qz3 = half_sqrt(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m10 - m01) / (4 * qz3), (m02 + m20) / (4 * qz3),
+                      (m12 + m21) / (4 * qz3), qz3], -1)
+    k = torch.argmax(torch.stack([tr, m00, m11, m22], -1), -1)[..., None]
+    q = torch.where(k == 0, q0, torch.where(k == 1, q1,
+                                            torch.where(k == 2, q2, q3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rotmat(q):
+    """Quaternion [..., 4] = [w, x, y, z] -> [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)

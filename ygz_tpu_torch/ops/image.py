@@ -64,6 +64,18 @@ def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
     return res
 
 
+def gradients(img):
+    """Central-difference gradients (dx, dy); zero on the border rows and
+    columns."""
+    dx = 0.5 * (torch.roll(img, -1, 1) - torch.roll(img, 1, 1))
+    dy = 0.5 * (torch.roll(img, -1, 0) - torch.roll(img, 1, 0))
+    dx[:, 0] = 0.0
+    dx[:, -1] = 0.0
+    dy[0, :] = 0.0
+    dy[-1, :] = 0.0
+    return dx, dy
+
+
 def halfsample(img):
     """2x2 average downsample."""
     H, W = img.shape
@@ -85,6 +97,10 @@ def build_pyramid(img, num_levels: int, scale_factor: float = 2.0):
     for _ in range(1, num_levels):
         levels.append(halfsample(levels[-1]))
     return tuple(levels)
+
+
+def pyramid_scales(num_levels: int, scale_factor: float = 2.0):
+    return [scale_factor ** l for l in range(num_levels)]
 
 
 # --------------------------------------------------------- stacked pyramids

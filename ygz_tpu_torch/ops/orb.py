@@ -71,3 +71,22 @@ def brief_descriptors(img_blurred, uv, angles, valid):
     q2 = rot(pat[:, 2:4]) + uv[:, None, :]
     bits = (sample_nearest(q1) < sample_nearest(q2)).to(torch.uint8)
     return torch.where(valid[:, None], bits, torch.zeros_like(bits))
+
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_bits(bits):
+    """[N, 256] 0/1 -> [N, 32] uint8 (byte-packed, the first bit of each
+    byte its most significant, as np.packbits)."""
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=bits.device)
+    b = bits.to(torch.uint8).reshape(*bits.shape[:-1], -1, 8)
+    return (b * w).sum(-1).to(torch.uint8)
+
+
+def unpack_bits(packed):
+    """[N, 32] uint8 -> [N, 256] uint8 0/1 (np.unpackbits)."""
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] & w) != 0
+    return bits.reshape(*packed.shape[:-1], -1)[..., :N_TESTS].to(
+        torch.uint8)

@@ -13,11 +13,13 @@ import enum
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .backend.bow import BowIndex, Vocabulary
 from .backend.loopclosing import LoopCloser
 from .backend.mapstate import SlamMap
 from .geometry import camera as cam_mod
+from .geometry.lie import rotmat_to_quat
 from .frontend.tracker import (MonoTracker, RgbdTracker, State,
                                StereoTracker, TrackerConfig)
 from .frontend.vi_tracker import MonoViTracker
@@ -30,35 +32,15 @@ class Sensor(enum.Enum):
     MONO_VI = 3
 
 
-def rotmat_to_quat(R):
-    """[3, 3] rotation -> unit quaternion [w, x, y, z] (Shepperd)."""
-    R = np.asarray(R, np.float64)
-    tr = np.trace(R)
-    k = int(np.argmax([tr, R[0, 0], R[1, 1], R[2, 2]]))
-    if k == 0:
-        w = 0.5 * np.sqrt(max(1.0 + tr, 1e-12))
-        q = [w, (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
-             (R[1, 0] - R[0, 1]) / (4 * w)]
-    elif k == 1:
-        x = 0.5 * np.sqrt(max(1.0 + R[0, 0] - R[1, 1] - R[2, 2], 1e-12))
-        q = [(R[2, 1] - R[1, 2]) / (4 * x), x, (R[0, 1] + R[1, 0]) / (4 * x),
-             (R[0, 2] + R[2, 0]) / (4 * x)]
-    elif k == 2:
-        y = 0.5 * np.sqrt(max(1.0 - R[0, 0] + R[1, 1] - R[2, 2], 1e-12))
-        q = [(R[0, 2] - R[2, 0]) / (4 * y), (R[0, 1] + R[1, 0]) / (4 * y), y,
-             (R[1, 2] + R[2, 1]) / (4 * y)]
-    else:
-        z = 0.5 * np.sqrt(max(1.0 - R[0, 0] - R[1, 1] + R[2, 2], 1e-12))
-        q = [(R[1, 0] - R[0, 1]) / (4 * z), (R[0, 2] + R[2, 0]) / (4 * z),
-             (R[1, 2] + R[2, 1]) / (4 * z), z]
-    q = np.asarray(q)
-    return q / np.linalg.norm(q)
+def _quat_wxyz(R):
+    """Unit quaternion [w, x, y, z] of a rotation, in float64 numpy."""
+    return rotmat_to_quat(torch.as_tensor(np.asarray(R, np.float64))).numpy()
 
 
 def _tum_line(ts, R, t):
     Rwc = np.asarray(R).T
     twc = -Rwc @ np.asarray(t)
-    q = rotmat_to_quat(Rwc)
+    q = _quat_wxyz(Rwc)
     return (f"{ts:.6f} {twc[0]:.7f} {twc[1]:.7f} {twc[2]:.7f} "
             f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
 
@@ -173,7 +155,7 @@ class System:
                 if k >= smap.n_kf or not smap.kf_valid[k]:
                     continue
                 P, V, R_wb = tr._kf_ns[k]
-                q = rotmat_to_quat(R_wb)  # [w, x, y, z]
+                q = _quat_wxyz(R_wb)
                 vals = [smap.kf_ts[k], *P, q[1], q[2], q[3], q[0], *V,
                         *tr.bg, *tr.ba]
                 f.write(" ".join(f"{v:.7f}" for v in vals) + "\n")

@@ -25,9 +25,9 @@ def _ns(t: float) -> int:
 
 
 def _quat_wxyz(R_wc):
-    from ..system import rotmat_to_quat
+    from ..system import _quat_wxyz
 
-    return rotmat_to_quat(R_wc)
+    return _quat_wxyz(R_wc)
 
 
 def write_euroc(root, frames, poses, fps=20.0, t0=10.0, right=None,

@@ -4,6 +4,7 @@ Every tracker carries a StageTimer, so the per-frame budget (pyramid, frame
 step, keyframe, mapping tail and its sub-stages) can be read at runtime;
 ``chip_smoke.py`` prints its report. For device time use torch.profiler or
 CUDA events around a run; this is the cheap always-on layer.
+``launch_calls`` counts what one call asks of the card.
 """
 from __future__ import annotations
 
@@ -39,3 +40,25 @@ class StageTimer:
         rows = [f"  {k:<22s} {v:8.2f} ms x{self.count[k]}"
                 for k, v in self.mean_ms().items()]
         return "per-stage mean wall time:\n" + "\n".join(rows)
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cudaMemcpy", "cudaMemset")
+
+
+def launch_calls(fn) -> int:
+    """Host launch and copy calls (cudaLaunchKernel, cudaMemcpy, ...) that
+    one call of fn makes on the card, by torch.profiler's CUDA activity.
+    The raw event list is counted: key_averages() takes about a second
+    per 10^4 events, and an eager solver makes ~10^5."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.profiler.kineto_results.events()
+            if e.name().startswith(LAUNCH_CALLS))
+    if n == 0:
+        raise RuntimeError("torch.profiler recorded no launch call")
+    return n

@@ -5,7 +5,10 @@ textured surface z = depth_fn(x, y) in the world frame; any view is rendered
 by inverse-warping the texture with clamped bilinear sampling. Every pixel
 has known depth, which gives analytic ground truth for the end-to-end runs
 (tests and ``chip_smoke.py``). Rendering stays on the host so the frames
-are identical whichever device the tracker runs on.
+are identical whichever device the tracker runs on. Surfaces: the plane,
+``SmoothScene`` (smooth relief) and ``StepScene`` (terraced depth);
+``Nuisance`` adds a real camera's exposure changes, noise, blur and
+occluders to rendered frames.
 
 The mono-inertial runs add a continuous camera trajectory (``pose_fn``:
 0.6 m/s forward, a +-0.15 m lateral sine, small angles) and its exact IMU
@@ -191,6 +194,58 @@ class SmoothScene(PlaneScene):
     def __init__(self, **kw):
         kw.setdefault("depth_fn", smooth_depth)
         super().__init__(**kw)
+
+
+def step_depth(x, y, base=PLANE_Z, amp=1.2, cell=1.1):
+    """Piecewise-constant 'terraced' depth: breaks the planar-homography
+    degeneracy of single-plane scenes."""
+    cx = np.floor(x / cell).astype(np.int64)
+    cy = np.floor(y / cell).astype(np.int64)
+    h = ((cx * 1103515245 + cy * 12345) % 4) / 3.0  # deterministic 0..1
+    return base + amp * (h - 0.5)
+
+
+class StepScene(PlaneScene):
+    def __init__(self, **kw):
+        kw.setdefault("depth_fn", step_depth)
+        super().__init__(**kw)
+
+
+class Nuisance:
+    """Photometric and occlusion nuisances of a real camera that the clean
+    renderer lacks: per-frame exposure gain and bias, Gaussian pixel noise,
+    occasional motion blur, and moving flat occluder rectangles (untextured
+    regions that defeat both direct alignment and descriptors locally).
+    Each frame draws from ``default_rng((seed, frame_idx))``, in the JAX
+    package's order, so both packages make the same frames."""
+
+    def __init__(self, seed: int = 0, gain: float = 0.15, bias: float = 8.0,
+                 noise: float = 2.0, blur_p: float = 0.2,
+                 n_occluders: int = 2, occ_size: int = 70):
+        self.seed = seed
+        self.gain = gain
+        self.bias = bias
+        self.noise = noise
+        self.blur_p = blur_p
+        self.n_occluders = n_occluders
+        self.occ_size = occ_size
+
+    def apply(self, img, frame_idx: int):
+        img = np.asarray(img, np.float32)
+        h, w = img.shape
+        rng = np.random.default_rng((self.seed, frame_idx))
+        g = 1.0 + rng.uniform(-self.gain, self.gain)
+        b = rng.uniform(-self.bias, self.bias)
+        out = img * g + b
+        if rng.random() < self.blur_p:
+            out = _blur_np(out, 5, 1.0)
+        for _ in range(self.n_occluders):
+            s = int(rng.uniform(0.5, 1.5) * self.occ_size)
+            x0 = int(rng.uniform(0, max(w - s, 1)))
+            y0 = int(rng.uniform(0, max(h - s, 1)))
+            out[y0: y0 + s, x0: x0 + s] = rng.uniform(40, 200)
+        out = out + rng.normal(0, self.noise, out.shape)
+        return np.clip(out, 0, 255).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
