@@ -95,13 +95,13 @@ def test_async_mapping_mono_vi():
     assert abs(span / truth - 1.0) < 0.12, (span, truth)
 
 
-@pytest.fixture
-def small_async():
-    """An async tracker initialized on a small scene (its two-keyframe
-    map built)."""
+def _initialized(async_mapping):
+    """A tracker initialized on a small scene (its two-keyframe map
+    built)."""
     scene = syn.SmoothScene(seed=11, w=344, h=258, f=215.0)
     cam = Camera.make(scene.f, scene.f, scene.cx, scene.cy, scene.w, scene.h)
-    tr = MonoTracker(cam, TrackerConfig(async_mapping=True), device="cpu")
+    tr = MonoTracker(cam, TrackerConfig(async_mapping=async_mapping),
+                     device="cpu")
     for i, (R, t) in enumerate(make_trajectory(12)):
         tr.track(scene.render(R, t), i * 0.05)
         if tr.state == State.OK:
@@ -109,6 +109,12 @@ def small_async():
     assert tr.state == State.OK and tr.map.n_kf == 2
     tr.wait_mapping_idle()
     return tr
+
+
+@pytest.fixture
+def small_async():
+    """An async tracker initialized on a small scene."""
+    return _initialized(True)
 
 
 def test_reset_race_drops_the_old_maps_job(small_async):
@@ -150,6 +156,39 @@ def test_reset_race_drops_the_old_maps_job(small_async):
     smap.assign_parent(3)
     smap.assign_parent(7)
     assert np.array_equal(smap.kf_parent, parents)
+
+
+def test_worker_tail_refreshes_the_reference_count(small_async):
+    """C-ref15: once the worker's tail of the reference keyframe has run,
+    the keyframe decision's reference count is that keyframe's bound
+    points, the tracked ones it was created with and those its tail bound
+    (the JAX count keeps the first)."""
+    tr = small_async
+    ids = tr._cache[:60]
+    uv = tr._carry.pts[:60, :2].numpy()
+    with tr._map_lock:
+        tr._create_keyframe(tr._carry.pyr, 1.0, tr._last_R, tr._last_t,
+                            ids, uv, np.zeros(len(ids), np.int32))
+        assert tr._kf_ref_tracked == len(ids)
+    tr.wait_mapping_idle()
+    kf = tr._last_kf
+    bound = int((tr.map.kf_feat_pt[kf] >= 0).sum())
+    assert tr._kf_ref_tracked == bound > len(ids)
+
+
+def test_inline_tail_keeps_the_jax_reference_count():
+    """Without the worker the reference count stays the JAX one, the
+    tracked points the keyframe was created with, after its tail bound
+    more (C-ref15 is async only: the inline path is held to JAX frame for
+    frame by test_torch_rgbd.py and test_torch_batch_track.py)."""
+    tr = _initialized(False)
+    ids = tr._cache[:60]
+    uv = tr._carry.pts[:60, :2].numpy()
+    tr._create_keyframe(tr._carry.pyr, 1.0, tr._last_R, tr._last_t, ids, uv,
+                        np.zeros(len(ids), np.int32))
+    kf = tr._last_kf
+    assert int((tr.map.kf_feat_pt[kf] >= 0).sum()) > len(ids)
+    assert tr._kf_ref_tracked == len(ids)
 
 
 def test_worker_exception_surfaces_at_wait_mapping_idle(small_async):

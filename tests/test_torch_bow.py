@@ -3,6 +3,7 @@ vocabulary training and tree lookup (the shipped vocabulary included), the
 sparse tf-idf keyframe index, the flat chunked word lookup, and the
 FeatureVector group gate of the matcher. Same numpy inputs, made from a
 seed, through both packages; everything here is compared exactly."""
+import hashlib
 import os
 
 import jax.numpy as jnp
@@ -62,11 +63,18 @@ def test_train_vocabulary_matches_jax(branching, depth, tmp_path):
 
 
 def test_shipped_vocabulary_words_match_jax():
-    """The port reads the JAX package's shipped vocabulary by path; the
-    tree lookup of a real frame's ORB descriptors (the port's extractor on
-    a SmoothScene frame) gives the same word ids."""
+    """The port ships its own copy of the JAX package's vocabulary (the
+    same bytes, inside ygz_tpu_torch/); the tree lookup of a real frame's
+    ORB descriptors (the port's extractor on a SmoothScene frame) gives
+    the same word ids."""
     pt, pj = tbow.default_vocabulary_path(), jbow.default_vocabulary_path()
-    assert os.path.samefile(pt, pj)
+    port_root = os.path.dirname(os.path.dirname(os.path.abspath(
+        tbow.__file__)))
+    assert os.path.commonpath([os.path.abspath(pt), port_root]) == port_root
+    assert not os.path.samefile(pt, pj)
+    with open(pt, "rb") as a, open(pj, "rb") as b:
+        assert (hashlib.sha256(a.read()).digest()
+                == hashlib.sha256(b.read()).digest())
     vt, vj = tbow.load_vocabulary(pt), jbow.load_vocabulary(pj)
     _assert_vocab_equal(vt, vj)
     assert vt.n_words == 99478 and (vt.branching, vt.depth) == (10, 5)

@@ -7,9 +7,9 @@ database are host numpy in the JAX package and stay numpy here, as
 The one device part is ``WordLookup``, the chunked nearest-word argmin for
 flat vocabularies saved without a tree.
 
-The shipped vocabulary (k=10, L=5, 99,478 words) is read by path from the
-JAX package's data directory (``default_vocabulary_path``); this package
-neither imports ``ygz_tpu`` nor copies the file.
+The shipped vocabulary (k=10, L=5, 99,478 words) is this package's own
+``data/orb_vocab.npz`` (``default_vocabulary_path``), a byte-for-byte copy
+of the JAX package's file.
 """
 from __future__ import annotations
 
@@ -187,10 +187,9 @@ def load_vocabulary(path: str) -> Vocabulary:
 
 
 def default_vocabulary_path() -> str:
-    """The shipped offline vocabulary, in the JAX package's data dir."""
+    """The shipped offline vocabulary, in this package's data dir."""
     return os.path.normpath(os.path.join(
-        os.path.dirname(__file__), "..", "..", "ygz_tpu", "data",
-        "orb_vocab.npz"))
+        os.path.dirname(__file__), "..", "data", "orb_vocab.npz"))
 
 
 WORD_CHUNK = 4096   # words per chunk of the flat-argmin lookup

@@ -149,7 +149,7 @@ class TrackerConfig:
     enable_relocalization: bool = True
     vocab_branching: int = 8
     vocab_depth: int = 3
-    # "auto": the shipped offline vocabulary (ygz_tpu/data/orb_vocab.npz,
+    # "auto": the shipped offline vocabulary (ygz_tpu_torch/data/orb_vocab.npz,
     # k=10 L=5, 99,478 words) when present, else trained in-system on the
     # init descriptors; a path loads that file; None forces training
     vocab_path: Optional[str] = "auto"
@@ -1361,6 +1361,14 @@ class MonoTracker:
             if self.bow_index is not None:
                 self._place_recognition(kf, pyr)
             self._rebuild_cache()
+            if self._map_worker is not None and kf == self._last_kf:
+                # C-ref15: the keyframe decision's reference count covers
+                # the points this tail bound to the reference keyframe, as
+                # the reference's TrackedMapPoints does, not only the
+                # tracked ones it was created with (the JAX count stays at
+                # a weak keyframe's few inliers, and no keyframe follows
+                # until kf_max_gap)
+                self._kf_ref_tracked = int((smap.kf_feat_pt[kf] >= 0).sum())
 
     # -------------------------------------------------------- sensor hooks
     # The mono-VI tracker (frontend/vi_tracker.py) overrides these.

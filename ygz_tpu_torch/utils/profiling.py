@@ -4,7 +4,8 @@ Every tracker carries a StageTimer, so the per-frame budget (pyramid, frame
 step, keyframe, mapping tail and its sub-stages) can be read at runtime;
 ``chip_smoke.py`` prints its report. For device time use torch.profiler or
 CUDA events around a run; this is the cheap always-on layer.
-``launch_calls`` counts what one call asks of the card.
+``launch_calls`` counts what one call asks of the card; ``device_events``
+returns the device records of its kernels and copies.
 """
 from __future__ import annotations
 
@@ -42,8 +43,8 @@ class StageTimer:
         return "per-stage mean wall time:\n" + "\n".join(rows)
 
 
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
-                "cudaMemcpy", "cudaMemset")
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
+LAUNCH_CALLS = KERNEL_LAUNCHES + ("cudaMemcpy", "cudaMemset")
 
 
 def launch_calls(fn) -> int:
@@ -62,3 +63,43 @@ def launch_calls(fn) -> int:
     if n == 0:
         raise RuntimeError("torch.profiler recorded no launch call")
     return n
+
+
+def device_events(fn, reps=1, pad=512):
+    """The card's kernel and copy records of `reps` calls of fn, by
+    torch.profiler's CUDA activity (the raw event list).
+
+    Once a process has run for some tens of seconds, torch.profiler drops
+    the records of the first few kernels of every session, more as the
+    process ages (on an H100 with torch 2.11, in an otherwise idle process
+    too; waiting after the start does not help). So
+    the session first launches `pad` one-element kernels, whose records
+    (by correlation id) are left out. Returns (records, kernel launches
+    after the pad with no record): a session of ~5 * 10^4 kernels late in
+    a process still lost ~1% of them. Graph replays are not counted there
+    (a replay has come back with no record at all). Raises if no record
+    is left."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    calls = sorted((e.start_ns(), e.correlation_id(), e.name())
+                   for e in events if e.name().startswith(LAUNCH_CALLS))
+    padded = {c for _, c, _ in calls[:pad]}
+    kernels = {c for _, c, name in calls[pad:]
+               if name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+    dev = [e for e in events
+           if e.device_type() == torch.autograd.DeviceType.CUDA
+           and e.correlation_id() not in padded]
+    if not dev:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return dev, len(kernels - {e.correlation_id() for e in dev})
