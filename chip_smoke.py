@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the hand-written CUDA kernels from ygz_tpu_torch/csrc/;
-  2. check each kernel against its plain PyTorch version on the card
+  1. build the hand-written CUDA kernels from ygz_tpu_torch/csrc/ (one
+     nvcc per source, all started together);
+  2. check each FAST kernel against its plain PyTorch version on the card
      (bit-exact) at the shapes the main path gives it, and time both: the
      single-threshold FAST-10 map per pyramid level, and the fused
      extraction front (one launch per stacked pyramid) against the
@@ -64,6 +65,17 @@ Phases (any failure raises and the script exits non-zero):
      (per frame from the same inputs, and chained in turns: ms and launches
      per frame). Every tracked path below replays the captured frame step
      too;
+  3c. (between the bench and the graph check of 3b) the frame step's two
+     Gauss-Newton kernels (csrc/pose_gn.cu, csrc/sparse_align.cu) against
+     their plain versions on the card: at the main path's inputs,
+     recorded from one eager frame step of the bench's tracker (which
+     must launch pose_gn twice and sparse_align once; one graph replay
+     must run the same three), and at seeded edge cases (stereo rows, one
+     row, 1,500 rows, points behind the camera, the PnP polish's gate, no
+     valid row; two levels of 3 iterations, points on the level borders,
+     no valid point); two launches repeating bit for bit; device and
+     CUDA-event times against the plain versions, the bound and the time
+     per GN step. Every path counts both kernels' wrapper launches;
   10b. the dataset runners from trees on disk, written with the port's PNG
      encoder under build/smoke_trees/: a EuRoC tree (the 160 frames of
      phase 3 without the exposure drop, its ground truth, a settings file
@@ -113,6 +125,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -139,6 +152,20 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # subtract, a compare and an add; the merge a compare, an add and a select;
 # the separable NMS 5 max, a compare and a select
 ARC_OPS, TH_OPS, MERGE_OPS, NMS_OPS = 16 + 8 + 16 + 59, 3, 3, 7
+# operations of the Gauss-Newton kernels' arithmetic (csrc/pose_gn.cu,
+# csrc/sparse_align.cu; an FMA counts 2): a mono pose row per GN step (the
+# projection 26, the residual 2, the 2x6 Jacobian 26, chi2 and weights 13,
+# the 2 x 27 products summed 120) and a stereo row's third row (residual 5,
+# Jacobian 15, chi2 2, products 60); a mono row per gate pass (projection
+# 26, residual 2, chi2 4, the gate 4) and its stereo part (residual 5, chi2
+# 2); an alignment point
+# per level's setup (the 7x7 gather blended to 6x6 324, gradients 64, Jp
+# 42) and per step (projection and visibility 34, the 5x5 gather 154, per
+# pixel: residual and Huber weight 6, J 18, weighted J 6, the 27 products
+# summed 54); one 6x6 solve, exponential and composition per step
+POSE_ROW_OPS, POSE_STEREO_ROW_OPS, GN_STEP_OPS = 187, 82, 480
+POSE_GATE_OPS, POSE_STEREO_GATE_OPS = 36, 7
+ALIGN_SETUP_OPS, ALIGN_POINT_OPS, ALIGN_PIXEL_OPS = 430, 188, 84
 # the stereo and RGB-D phases: the EuRoC stereo rig (examples/
 # stereo_euroc.py: f, bf = baseline * f) and the TUM fr1 camera (examples/
 # rgbd_tum.py: fx; its distortion dropped, as the renderer draws
@@ -1661,6 +1688,331 @@ def check_graph_vs_eager(system, frames, profiled=True):
     return rec
 
 
+def pose_case(seed, n, stereo=False, behind=0, no_valid=False, unit=False):
+    """A seeded pose problem (numpy): points before a camera ~3 deg and 7 cm
+    from the start pose, 0.5-px noise, 1/8 gross outliers; optional stereo
+    rows (40% of them mono), points behind the camera, no valid row, unit
+    weights (the PnP polish)."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                  rng.uniform(3, 10, n)], 1).astype(np.float32)
+    R = rodrigues(np.array([0.03, -0.04, 0.01]))
+    t = np.array([0.1, -0.05, 0.2])
+    Xc = X @ R.T + t
+    uv = np.stack([F * Xc[:, 0] / Xc[:, 2] + W / 2 - 0.5,
+                   F * Xc[:, 1] / Xc[:, 2] + H / 2 - 0.5], 1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    uv[: n // 8] += rng.uniform(20, 60, (n // 8, 2))
+    if behind:
+        X[n - behind:] = -X[n - behind:]
+    is2 = (np.ones(n) if unit else 0.25 ** rng.integers(0, 4, n))
+    valid = np.zeros(n, bool) if no_valid else rng.random(n) > 0.05
+    ur = None
+    if stereo:
+        ur = uv[:, 0] - STEREO_BF / Xc[:, 2] + rng.normal(0, 0.3, n)
+        ur[rng.random(n) < 0.4] = -1.0
+    f32 = np.float32
+    return dict(X=X, uv=uv.astype(f32), is2=is2.astype(f32), valid=valid,
+                R0=rodrigues(np.array([0.07, -0.02, 0.04])).astype(f32),
+                t0=(t + [0.05, -0.03, 0.04]).astype(f32),
+                ur=None if ur is None else ur.astype(f32),
+                bf=STEREO_BF if stereo else 0.0)
+
+
+def rodrigues(w):
+    th = float(np.linalg.norm(w))
+    k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+
+def pose_args(case, dev="cuda"):
+    """pose_optimization's arguments (a dict) of a pose_case."""
+    import torch
+
+    t = {k: torch.as_tensor(case[k], device=dev)
+         for k in ("X", "uv", "is2", "valid", "R0", "t0")}
+    return dict(X=t["X"], uv=t["uv"], inv_sigma2=t["is2"], valid=t["valid"],
+                R0=t["R0"], t0=t["t0"], intr=(F, F, W / 2 - 0.5, H / 2 - 0.5),
+                ur=None if case["ur"] is None else torch.as_tensor(
+                    case["ur"], device=dev), bf=case["bf"])
+
+
+def hold_pose_gn(label, kw):
+    """pose_optimization's kernel against its plain version on the same
+    card inputs; returns max |err| of R and t (0 where both are
+    non-finite)."""
+    import torch
+    from ygz_tpu_torch.backend import optim
+
+    got = optim.pose_optimization(**kw)
+    want = optim.pose_optimization_torch(**kw)
+    torch.cuda.synchronize()
+    g_inl, w_inl = got.inliers.cpu().numpy(), want.inliers.cpu().numpy()
+    fin = [bool(torch.isfinite(r.R).all() and torch.isfinite(r.t).all())
+           for r in (got, want)]
+    n = int(kw["X"].shape[0])
+    err = max(float((got.R - want.R).abs().max()),
+              float((got.t - want.t).abs().max())) if fin[0] else 0.0
+    print(f"pose_gn {label} (N={n}): max |dR|, |dt| {err:.2e}, inliers "
+          f"{int(got.n_inliers)} / {int(want.n_inliers)} plain, finite "
+          f"{fin[0]} / {fin[1]}")
+    ok = fin[0] == fin[1] and int(got.n_inliers) == int(g_inl.sum())
+    if not fin[1]:          # no valid row: non-finite in both, no inlier
+        ok &= int(got.n_inliers) == 0
+    elif n == 1:            # rank-deficient: the row is fitted and kept
+        ok &= (g_inl.tolist() == w_inl.tolist()
+               and float(got.chi2[0]) < 1e-3)
+        err = 0.0
+    else:
+        # float32 sums in another order: the fixed point agrees to ~1e-7;
+        # masks equal but for rows whose chi2 is within 1e-4 of the gate
+        gate = kw.get("chi2_th", optim.CHI2_MONO)
+        th = np.full(n, gate, np.float32)
+        if kw.get("ur") is not None:
+            th[kw["ur"].cpu().numpy() >= 0] = 7.815 * gate / optim.CHI2_MONO
+        c2 = want.chi2.cpu().numpy()
+        near = np.abs(c2 - th) <= 1e-4 * th
+        ok &= (err < 1e-5 and np.array_equal(g_inl[~near], w_inl[~near])
+               and np.allclose(got.chi2.cpu().numpy(), c2, atol=1e-2,
+                               rtol=1e-3))
+    if not ok:
+        raise RuntimeError(f"pose_gn kernel disagrees with the plain version "
+                           f"on {label}")
+    return err
+
+
+def hold_sparse_align(label, kw):
+    """sparse_image_align's kernel against its plain version on the same
+    card inputs; returns max |err| of R and t (0 when no point is valid)."""
+    import torch
+    from ygz_tpu_torch.frontend import sparse_align
+
+    got = sparse_align.sparse_image_align(**kw)
+    want = sparse_align.sparse_image_align_torch(**kw)
+    torch.cuda.synchronize()
+    fin = bool(torch.isfinite(want.R).all())
+    err = max(float((got.R - want.R).abs().max()),
+              float((got.t - want.t).abs().max())) if fin else 0.0
+    res = (float(got.mean_res), float(want.mean_res))
+    print(f"sparse_align {label} (N={int(kw['uv0'].shape[0])}, levels "
+          f"{kw['levels']}, {kw['iters']} iterations): max |dR|, |dt| "
+          f"{err:.2e}, n_meas {int(got.n_meas)} / {int(want.n_meas)} plain, "
+          f"mean |r| {res[0]:.5f} / {res[1]:.5f}")
+    if not fin:             # no valid point: no measurement, diagnostics 0
+        ok = (int(got.n_meas) == int(want.n_meas) == 0
+              and res[0] == res[1] == 0.0
+              and not bool(torch.isfinite(got.R).all()))
+    else:
+        # float32 sums in another order; a point on a border line may flip
+        ok = (err < 1e-5 and abs(int(got.n_meas) - int(want.n_meas)) <= 2
+              and abs(res[0] - res[1]) < 1e-3)
+    if not ok:
+        raise RuntimeError(f"sparse_align kernel disagrees with the plain "
+                           f"version on {label}")
+    return err
+
+
+def record_step_calls(system, img):
+    """One eager frame step of `img` from the tracker's carry and cache on
+    the card, with the arguments of its pose_optimization and
+    sparse_image_align calls recorded (as passed: the cache's strided
+    columns, the carry pyramid's level views; an eager step writes none of
+    them); returns (pose calls, align calls, launches of each kernel in
+    that step)."""
+    import torch
+    from ygz_tpu_torch.backend import optim
+    from ygz_tpu_torch.frontend import direct_tracker, framestep
+    from ygz_tpu_torch.frontend import sparse_align
+
+    tr = system.tracker
+    graph = tr._graph
+    calls = {"pose": [], "align": []}
+
+    def recorder(key, fn, names):
+        def rec(*args, **kw):
+            calls[key].append({**dict(zip(names, args)), **kw})
+            return fn(*args, **kw)
+        return rec
+
+    pose_names = ("X", "uv", "inv_sigma2", "valid", "R0", "t0", "intr")
+    align_names = ("ref_pyr", "cur_pyr", "uv0", "X_ref", "valid", "intr",
+                   "R_init", "t_init")
+    real = (direct_tracker.pose_optimization, framestep.sparse_image_align)
+    direct_tracker.pose_optimization = recorder(
+        "pose", optim.pose_optimization, pose_names)
+    framestep.sparse_image_align = recorder(
+        "align", sparse_align.sparse_image_align, align_names)
+    before = (optim.pose_optimization.launches,
+              sparse_align.sparse_image_align.launches)
+    try:
+        carry = framestep.FrameCarry(*(a.clone() for a in graph.carry))
+        framestep.frame_step(torch.as_tensor(img, device="cuda"), carry,
+                             tr._snap_cache(tr._snap), graph.no_pred,
+                             graph.remap, tr.intr)
+        torch.cuda.synchronize()
+    finally:
+        direct_tracker.pose_optimization, framestep.sparse_image_align = real
+    launches = (optim.pose_optimization.launches - before[0],
+                sparse_align.sparse_image_align.launches - before[1])
+    return calls["pose"], calls["align"], launches
+
+
+def gn_kernel_names(system, frames):
+    """pose_gn and sparse_align kernels per graph replay of the tracker's
+    frame step over the frames (torch.profiler's device records), from the
+    graph's carry, which is put back afterwards."""
+    import torch
+    from ygz_tpu_torch.frontend.framestep import FrameCarry
+    from ygz_tpu_torch.utils.profiling import device_events
+
+    tr = system.tracker
+    graph = tr._graph
+    saved = FrameCarry(*(a.clone() for a in graph.carry))
+    graph.load(None, tr._snap_cache(tr._snap), graph.no_pred)
+    imgs = iter(frames)
+    dev, _ = device_events(lambda: graph.step(torch.from_numpy(next(imgs))),
+                           len(frames))
+    graph.load(saved)
+    names = [e.name() for e in dev]
+    return (sum("pose_gn_kernel" in k for k in names) / len(frames),
+            sum("sparse_align_kernel" in k for k in names) / len(frames))
+
+
+def time_gn(label, fn, plain, steps, n_bytes, n_ops):
+    """Device and CUDA-event times of a kernel and its plain version at one
+    call's inputs, the bound and us per GN step; returns a dict."""
+    ms, kernels = device_time(fn, 50)
+    plain_ms, plain_kernels = device_time(plain, 3)
+    rec = {"ms": ms, "event_ms": time_cuda(fn, 50), "plain_ms": plain_ms,
+           "plain_event_ms": time_cuda(plain, 3), "steps": steps,
+           "us_per_step": 1e3 * ms / steps, "bytes": n_bytes,
+           "operations": n_ops, "plain_kernels": plain_kernels,
+           "kernels_per_call": kernels}
+    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, n_ops)
+    rec["bound_us"] = 1e3 * rec["bound_ms"]
+    print(f"{label}: device {1e3 * ms:.3f} us per call over {kernels:.0f} "
+          f"kernel ({1e3 * ms / steps:.3f} us per GN step, {steps} dependent "
+          f"steps); bound {rec['bound_us']:.4f} us by {rec['bound_by']} "
+          f"({n_bytes} B, {n_ops} operations; "
+          f"{100 * rec['bound_ms'] / ms:.2f}% of it); CUDA events "
+          f"{1e3 * rec['event_ms']:.3f} us; plain version "
+          f"{1e3 * plain_ms:.3f} us device over {plain_kernels:.0f} kernels, "
+          f"{1e3 * rec['plain_event_ms']:.3f} us events")
+    return rec
+
+
+def check_gn_kernels(system, frames):
+    """The frame step's two Gauss-Newton kernels (csrc/pose_gn.cu,
+    csrc/sparse_align.cu) against their plain versions on the card: at
+    seeded edge cases and at the main path's inputs (recorded from one
+    eager frame step of the tracker's 512-point cache); two launches
+    repeating bit for bit; one eager step launching 2 + 1 of them and one
+    graph replay running 2 + 1; times, bounds and us per step. Returns the
+    two kernel records."""
+    import torch
+    from ygz_tpu_torch.backend import optim
+    from ygz_tpu_torch.frontend import sparse_align
+
+    pose_calls, align_calls, launches = record_step_calls(system, frames[0])
+    print(f"one eager frame step: pose_gn launches {launches[0]}, "
+          f"sparse_align launches {launches[1]}")
+    if launches != (2, 1) or len(pose_calls) != 2 or len(align_calls) != 1:
+        raise RuntimeError("a frame step did not launch pose_gn twice and "
+                           "sparse_align once")
+    per_replay = gn_kernel_names(system, frames[:4])
+    print(f"graph replay: pose_gn {per_replay[0]}, sparse_align "
+          f"{per_replay[1]} kernels per frame step")
+    if per_replay != (2, 1):
+        raise RuntimeError("a graph replay did not run 2 pose_gn and 1 "
+                           "sparse_align kernels")
+
+    pose_err = max(hold_pose_gn(f"main path call {i}", kw)
+                   for i, kw in enumerate(pose_calls))
+    for label, spec in (
+            ("stereo rows", dict(seed=0, n=512, stereo=True)),
+            ("one row", dict(seed=1, n=1)),
+            ("1500 rows", dict(seed=2, n=1500)),
+            ("40 behind the camera", dict(seed=3, n=512, behind=40)),
+            ("no valid row", dict(seed=6, n=128, no_valid=True))):
+        pose_err = max(pose_err, hold_pose_gn(label, pose_args(
+            pose_case(**spec))))
+    pose_err = max(pose_err, hold_pose_gn("the PnP polish's gate", dict(
+        pose_args(pose_case(seed=4, n=300, unit=True)),
+        chi2_th=optim.CHI2_MONO)))
+
+    main = align_calls[0]
+    align_err = hold_sparse_align("main path", main)
+    rng = np.random.default_rng(9)
+    border = dict(main, uv0=main["uv0"].clone(), levels=(2, 1), iters=3)
+    n = border["uv0"].shape[0]
+    # a quarter of the points onto level 1's and level 2's 3-px border
+    # lines (+- 1 px), two onto the image's corners
+    for j, s in enumerate((0.5, 0.25)):
+        idx = torch.as_tensor(rng.choice(n, n // 8, replace=False),
+                              device="cuda")
+        edge = (3.0 + 0.5) / s - 0.5 + rng.uniform(-1, 1, n // 8) / s
+        border["uv0"][idx, j] = torch.as_tensor(edge, dtype=torch.float32,
+                                                device="cuda")
+    border["uv0"][:2] = torch.tensor([[0.0, 0.0], [W - 1.0, H - 1.0]])
+    for label, kw in (
+            ("levels (2, 1), 3 iterations", dict(main, levels=(2, 1),
+                                                 iters=3)),
+            ("level borders", border),
+            ("no valid point", dict(main, valid=torch.zeros_like(
+                main["valid"])))):
+        align_err = max(align_err, hold_sparse_align(label, kw))
+
+    # two launches on the same inputs: the same bits
+    a = [optim.pose_optimization(**pose_calls[1]) for _ in range(2)]
+    b = [sparse_align.sparse_image_align(**main) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = (all(torch.equal(x, y) for x, y in zip(*a)),
+            all(torch.equal(x, y) for x, y in zip(*b)))
+    print(f"repeat bit for bit: pose_gn {same[0]}, sparse_align {same[1]}")
+    if not all(same):
+        raise RuntimeError("a Gauss-Newton kernel did not repeat")
+
+    kw = pose_calls[1]
+    N = int(kw["X"].shape[0])
+    # rows with a right-image u (none on the main path: ur is None there)
+    n_st = 0 if kw.get("ur") is None else int((kw["ur"] >= 0).sum())
+    rounds, iters = 4, 10
+    pose_rec = time_gn(
+        f"pose_gn at the main path's N={N}",
+        lambda: optim.pose_optimization(**kw),
+        lambda: optim.pose_optimization_torch(**kw), rounds * iters,
+        # X, uv, inv_sigma2, valid, R0, t0 in; R, t, inliers, n, chi2 out
+        N * (12 + 8 + 4 + 1) + 48 + 48 + N + 8 + 4 * N,
+        rounds * iters * (N * POSE_ROW_OPS + n_st * POSE_STEREO_ROW_OPS
+                          + GN_STEP_OPS)
+        + rounds * (N * POSE_GATE_OPS + n_st * POSE_STEREO_GATE_OPS))
+    lv, it = main["levels"], main["iters"]
+    N = int(main["uv0"].shape[0])
+    align_rec = time_gn(
+        f"sparse_align at the main path's N={N}, levels {lv}",
+        lambda: sparse_align.sparse_image_align(**main),
+        lambda: sparse_align.sparse_image_align_torch(**main), len(lv) * it,
+        # uv0, X, valid, R, t in; each point's 7x7 reference and 5x5 current
+        # window at each level read once; R, t, n_meas, mean_res out
+        N * (8 + 12 + 1) + 48 + 4 * N * len(lv) * (49 + 25) + 48 + 12,
+        len(lv) * (N * ALIGN_SETUP_OPS + it * (
+            N * (ALIGN_POINT_OPS + 16 * ALIGN_PIXEL_OPS) + GN_STEP_OPS))
+        + N * (ALIGN_POINT_OPS + 32))
+    common = {"route": "cuda", "library_ms": None}
+    return ({"name": "pose_gn", **common,
+             "source": "ygz_tpu_torch/csrc/pose_gn.cu",
+             "replaces": "ygz_tpu/backend/optim.py:197",
+             "max_abs_err": pose_err,
+             "launches_per_eager_frame_step": launches[0],
+             "kernels_per_graph_replay": per_replay[0], **pose_rec},
+            {"name": "sparse_align", **common,
+             "source": "ygz_tpu_torch/csrc/sparse_align.cu",
+             "replaces": "ygz_tpu/frontend/sparse_align.py:44",
+             "max_abs_err": align_err,
+             "launches_per_eager_frame_step": launches[1],
+             "kernels_per_graph_replay": per_replay[1], **align_rec})
+
+
 def run_counted(fast, label, fn):
     """Runs fn with every kernel's launch count set to 0 and the
     extractor's calls counted; checks one fused launch per extraction and
@@ -1668,21 +2020,37 @@ def run_counted(fast, label, fn):
     single-threshold launches), both read at the end of this run."""
     import torch
 
+    from ygz_tpu_torch.backend import optim
+    from ygz_tpu_torch.frontend import sparse_align
+
+    gn = (optim.pose_optimization, sparse_align.sparse_image_align)
     fast.fast_score_map.launches = 0
     fast.fast_corner_maps.launches = 0
+    for wrapper in gn:
+        wrapper.launches = 0
     with counted_extractions() as extractions:
         out = fn()
     torch.cuda.synchronize()
     fused = fast.fast_corner_maps.launches
     single = fast.fast_score_map.launches
+    GN_LAUNCHES[label] = {"pose_gn": gn[0].launches,
+                          "sparse_align": gn[1].launches}
     by = collections.Counter(extractions)
     print(f"{label}: {len(extractions)} extractions ({dict(by)}), "
           f"fast_corners launches {fused}, single-threshold fast_score "
-          f"launches {single}")
+          f"launches {single}; Gauss-Newton kernel launches outside graph "
+          f"captures and replays {GN_LAUNCHES[label]}")
     if not extractions or fused != len(extractions) or single:
         raise RuntimeError(f"{label} did not make exactly one fast_corners "
                            f"launch per extraction")
     return out, fused, single
+
+
+# run_counted's Gauss-Newton kernel launches per path (wrapper counts:
+# eager calls and the warm-up steps of each frame-step graph; a call inside
+# a capture launches nothing and a graph replay runs its kernels with no
+# wrapper call, so neither counts)
+GN_LAUNCHES = {}
 
 
 def check_ransac():
@@ -2475,8 +2843,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    cuda_build.build("fast_score", verbose=True)
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    cuda_build.build_all(verbose=True)
+    print(f"kernel build ({', '.join(cuda_build.sources())}, in parallel): "
+          f"{time.perf_counter() - t0:.1f} s")
     if paths_only:
         time_paths(smi)
         return 0
@@ -2511,10 +2880,19 @@ def main() -> int:
     check_batch_result(bsys, bstates, poses[:n_batch], brun.secs,
                        brun.drain_s, tails, logged)
     bench_rec = report_bench(brun, poses[:n_batch])
+    gn_recs = check_gn_kernels(bsys, clean[n_batch:])
     step_rec = check_graph_vs_eager(bsys, clean[n_batch:])
 
     (system, states, ladder, secs), fused, single = run_counted(
         fast, "main path", lambda: run_main_path(frames[:N_FRAMES], "cuda"))
+    main_replays = system.tracker._graph.replays
+    main_per_replay = gn_kernel_names(system, frames[N_FRAMES:])
+    print(f"main path: {main_replays} frame-step graph replays; pose_gn "
+          f"{main_per_replay[0]}, sparse_align {main_per_replay[1]} kernels "
+          f"per replay of its graph")
+    if main_per_replay != (2, 1):
+        raise RuntimeError("a replay of the main path's graph did not run 2 "
+                           "pose_gn and 1 sparse_align kernels")
     corners_rec["launches"], score_rec["launches"] = fused, single
     print(f"main path: {N_FRAMES} frames in {secs:.2f} s "
           f"({1e3 * secs / N_FRAMES:.2f} ms/frame mean)")
@@ -2591,7 +2969,16 @@ def main() -> int:
     print(json.dumps({"frame_step": step_rec}))
     print(json.dumps({"dist_ba": dist_rec}))
     print(json.dumps({"runners": runner_rec}))
-    print(json.dumps({"kernels": [score_rec, corners_rec]}))
+    for rec, per_replay in zip(gn_recs, main_per_replay):
+        rec["launches"] = GN_LAUNCHES["main path"][rec["name"]]
+        rec["main_path_graph_replays"] = main_replays
+        rec["kernels_per_main_path_replay"] = per_replay
+        rec.update({"launches_" + re.sub(r"\W+", "_", label).strip("_"):
+                    n[rec["name"]] for label, n in GN_LAUNCHES.items()})
+    if not all(rec["launches"] > 0 for rec in gn_recs):
+        raise RuntimeError(f"the main path launched no Gauss-Newton kernel: "
+                           f"{GN_LAUNCHES['main path']}")
+    print(json.dumps({"kernels": [score_rec, corners_rec, *gn_recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

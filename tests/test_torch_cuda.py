@@ -6,6 +6,8 @@ Imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
 Without a CUDA device every test skips."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,14 @@ import torch
 from ygz_tpu_torch.ops import fast
 from ygz_tpu_torch.utils.synthetic import SmoothScene
 
+from torch_gn_cases import ALIGN_CASES as ALIGN_GN_CASES
+from torch_gn_cases import BF as BF_GN
+from torch_gn_cases import INTR as INTR_GN
+from torch_gn_cases import NO_VALID as NO_VALID_GN
+from torch_gn_cases import POSE_CASES as POSE_GN_CASES
+from torch_gn_cases import align_points as gn_align_points
+from torch_gn_cases import plane_frames as gn_plane_frames
+from torch_gn_cases import pose_problem as gn_pose_problem
 from torch_parity import render_u8
 
 # the main path's pyramid levels (EuRoC 752x480, 4 levels, factor 2) and
@@ -591,3 +601,210 @@ def test_dist_ba_on_the_card_matches_the_cpu_and_repeats(cuda):
         assert (card.kf_t.cpu() - other.kf_t.cpu()).abs().max() < 1e-4
         assert abs(float(card.total_chi2) - float(other.total_chi2)) \
             < 0.01 * float(other.total_chi2)
+
+
+# ---- the frame step's two Gauss-Newton loops, one launch each
+# (csrc/pose_gn.cu, csrc/sparse_align.cu), against their plain versions on
+# the same card inputs: tests/torch_gn_cases.py's seeded cases (the CPU
+# parity tests against JAX use the same ones)
+
+def _pose_on(p, kw, dev, fn):
+    from ygz_tpu_torch.backend.optim import CHI2_MONO
+
+    ur = p["ur"]
+    res = fn(*(torch.as_tensor(p[k], device=dev)
+               for k in ("X", "uv", "is2", "valid", "R0", "t0")),
+             INTR_GN,
+             ur=None if ur is None else torch.as_tensor(ur, device=dev),
+             bf=BF_GN if ur is not None else 0.0, **kw)
+    gate = kw.get("chi2_th", CHI2_MONO)
+    th = np.full(len(p["X"]), gate, np.float32)
+    if ur is not None:
+        th[ur >= 0] = 7.815 * gate / CHI2_MONO
+    return res, th
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(POSE_GN_CASES) + ["no_valid"])
+def test_pose_gn_kernel_matches_plain(cuda, case):
+    from ygz_tpu_torch.backend import optim
+
+    spec, kw = POSE_GN_CASES.get(case, (NO_VALID_GN, {}))
+    p = gn_pose_problem(**spec)
+    before = optim.pose_optimization.launches
+    got, th = _pose_on(p, kw, cuda, optim.pose_optimization)
+    assert optim.pose_optimization.launches == before + 1
+    want, _ = _pose_on(p, kw, cuda, optim.pose_optimization_torch)
+    torch.cuda.synchronize()
+    g_inl, w_inl = got.inliers.cpu().numpy(), want.inliers.cpu().numpy()
+    assert int(got.n_inliers) == int(g_inl.sum())
+    if case == "no_valid":
+        # H = 0: non-finite steps in both, no inlier
+        assert not torch.isfinite(got.R).all()
+        assert not torch.isfinite(want.R).all()
+        assert int(got.n_inliers) == 0
+        return
+    if spec["n"] == 1:
+        # rank-deficient (torch_gn_cases / test_torch_gn_kernels.py): the
+        # pose follows rounding; the row is fitted and kept in both
+        assert g_inl.tolist() == w_inl.tolist() == [bool(p["valid"][0])]
+        assert float(got.chi2[0]) < 1e-3 and float(want.chi2[0]) < 1e-3
+        return
+    # the same float32 GN with its sums in another order (the kernel's
+    # fixed tree against cuBLAS / cuSOLVER): the fixed point agrees to
+    # ~1e-7 (the kernel's arithmetic emulated on the CPU: 6e-8 / 8e-7)
+    assert (got.R - want.R).abs().max() < 1e-5
+    assert (got.t - want.t).abs().max() < 1e-5
+    # masks equal but for rows whose chi2 sits within 1e-4 of the gate
+    c2 = want.chi2.cpu().numpy()
+    near = np.abs(c2 - th) <= 1e-4 * th
+    assert np.array_equal(g_inl[~near], w_inl[~near])
+    # chi2 at the final pose; rows behind the camera reach ~1e16
+    np.testing.assert_allclose(got.chi2.cpu().numpy(), c2, atol=1e-2,
+                               rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_gn_kernels_repeat_bit_for_bit(cuda):
+    """No atomics, one summation order: two launches on the same inputs
+    give the same bits (what a graph replay of the frame step needs)."""
+    from ygz_tpu_torch.backend import optim
+
+    p = gn_pose_problem(**POSE_GN_CASES["stereo"][0])
+    a, _ = _pose_on(p, {}, cuda, optim.pose_optimization)
+    b, _ = _pose_on(p, {}, cuda, optim.pose_optimization)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref, cur, uv0, X, valid, intr = _align_inputs(cuda, seed=8, border=False)
+    from ygz_tpu_torch.frontend.sparse_align import sparse_image_align
+
+    a = sparse_image_align(ref, cur, uv0, X, valid, intr,
+                           torch.eye(3, device=cuda),
+                           torch.zeros(3, device=cuda))
+    b = sparse_image_align(ref, cur, uv0, X, valid, intr,
+                           torch.eye(3, device=cuda),
+                           torch.zeros(3, device=cuda))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _align_inputs(dev, seed, border, no_valid=False):
+    """The plane frames' pyramids (the reference's levels as views of a
+    stacked buffer, as the frame step passes the carry's) and the case's
+    points, on `dev`."""
+    from ygz_tpu_torch.ops.image import (build_pyramid, stack_pyramid,
+                                         unstack_pyramid)
+
+    scene, I0, I1, _ = _plane_frames()
+    uv0, valid = gn_align_points(seed, border)
+    if no_valid:
+        valid[:] = False
+    X = scene.backproject(np.eye(3), np.zeros(3), uv0).astype(np.float32)
+    ref = unstack_pyramid(stack_pyramid(build_pyramid(
+        torch.as_tensor(I0, device=dev), 4)), 4)
+    cur = build_pyramid(torch.as_tensor(I1, device=dev), 4)
+    return (ref, cur, torch.as_tensor(uv0, device=dev),
+            torch.as_tensor(X, device=dev),
+            torch.as_tensor(valid, device=dev),
+            (scene.f, scene.f, scene.cx, scene.cy))
+
+
+# rendered once, at the first test that runs on a card
+_plane_frames = functools.lru_cache(maxsize=None)(gn_plane_frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ALIGN_GN_CASES)
+                         + ["main_path", "no_valid"])
+def test_sparse_align_kernel_matches_plain(cuda, case):
+    from ygz_tpu_torch.frontend import sparse_align as sa
+
+    spec = ALIGN_GN_CASES.get(case, dict(seed=8, border=False))
+    levels, iters = ((2, 1), 3) if case in ALIGN_GN_CASES else ((3, 2, 1),
+                                                                10)
+    ref, cur, uv0, X, valid, intr = _align_inputs(
+        cuda, **spec, no_valid=case == "no_valid")
+    eye, zero = torch.eye(3, device=cuda), torch.zeros(3, device=cuda)
+    before = sa.sparse_image_align.launches
+    got = sa.sparse_image_align(ref, cur, uv0, X, valid, intr, eye, zero,
+                                levels=levels, iters=iters)
+    assert sa.sparse_image_align.launches == before + 1
+    want = sa.sparse_image_align_torch(ref, cur, uv0, X, valid, intr, eye,
+                                       zero, levels=levels, iters=iters)
+    torch.cuda.synchronize()
+    if case == "no_valid":
+        assert int(got.n_meas) == int(want.n_meas) == 0
+        assert float(got.mean_res) == float(want.mean_res) == 0.0
+        assert not torch.isfinite(got.R).all()
+        return
+    # float32 sums in another order (the kernel's arithmetic emulated on
+    # the CPU agrees to 1.2e-7 / 4.9e-7 on these cases)
+    assert (got.R - want.R).abs().max() < 1e-5
+    assert (got.t - want.t).abs().max() < 1e-5
+    # a point on a border line may flip its visibility
+    assert abs(int(got.n_meas) - int(want.n_meas)) <= 2
+    assert abs(float(got.mean_res) - float(want.mean_res)) < 1e-3
+    assert int(got.n_meas) > 300
+
+
+@pytest.mark.cuda
+def test_gn_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    from ygz_tpu_torch.backend.optim import pose_optimization
+    from ygz_tpu_torch.frontend.sparse_align import sparse_image_align
+
+    n = 16
+    X = torch.rand(n, 3, device=cuda) + 2.0
+    uv = torch.rand(n, 2, device=cuda)
+    ones = torch.ones(n, device=cuda)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    eye, zero = torch.eye(3, device=cuda), torch.zeros(3, device=cuda)
+    with pytest.raises(TypeError):
+        pose_optimization(X.double(), uv, ones, valid, eye, zero, INTR_GN)
+    with pytest.raises(ValueError):
+        pose_optimization(X[:, :2], uv, ones, valid, eye, zero, INTR_GN)
+    with pytest.raises(TypeError):
+        pose_optimization(X, uv, ones, valid, eye.double(), zero, INTR_GN)
+    with pytest.raises(ValueError):
+        pose_optimization(X, uv[:-1], ones, valid, eye, zero, INTR_GN)
+    # a level below sample_patches' 7x7 gather
+    tiny = tuple(torch.zeros(48 >> k, 64 >> k, device=cuda)
+                 for k in range(4))
+    with pytest.raises(ValueError):
+        sparse_image_align(tiny, tiny, uv, X, valid, INTR_GN, eye, zero)
+    with pytest.raises(TypeError):
+        sparse_image_align(tuple(x.double() for x in tiny), tiny, uv, X,
+                           valid, INTR_GN, eye, zero, levels=(1,))
+
+
+@pytest.mark.cuda
+def test_frame_step_launches_each_gn_kernel(cuda):
+    """One eager frame step launches pose_gn twice (direct tracking's two
+    passes) and sparse_align once; one graph replay runs the same three
+    kernels (torch.profiler's kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+    from ygz_tpu_torch.backend import optim
+    from ygz_tpu_torch.frontend import sparse_align as sa
+    from ygz_tpu_torch.frontend.framestep import FrameCarry, frame_step
+    from ygz_tpu_torch.system import Sensor, System
+
+    cam, frames = _sweep_frames(14)
+    system = System(cam, Sensor.MONOCULAR)
+    for i, img in enumerate(frames[:12]):
+        system.track_monocular(img, i * 0.05)
+    tr = system.tracker
+    graph = tr._graph
+    assert tr.state.name == "OK" and graph is not None
+    cache = tr._snap[1]
+    before = (optim.pose_optimization.launches,
+              sa.sparse_image_align.launches)
+    frame_step(torch.as_tensor(frames[12], device=cuda),
+               FrameCarry(*(a.clone() for a in graph.carry)), cache,
+               graph.no_pred, None, tr.intr)
+    assert (optim.pose_optimization.launches - before[0],
+            sa.sparse_image_align.launches - before[1]) == (2, 1)
+    graph.load(graph.carry, cache, graph.no_pred)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.step(torch.as_tensor(frames[13]))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("pose_gn_kernel" in k for k in names) == 2
+    assert sum("sparse_align_kernel" in k for k in names) == 1

@@ -11,14 +11,20 @@ order on the card, so a run repeats bit for bit).
 Constants follow the reference (Optimizer::PoseOptimization: 4 rounds x 10
 iterations, chi2 gate 5.991 mono, Huber in the first two rounds;
 LocalBundleAdjustment: 5 iterations, outlier drop, 10 more).
+
+``pose_optimization`` runs its whole staged GN in one launch of the
+hand-written CUDA kernel ``csrc/pose_gn.cu`` on a CUDA tensor, and the plain
+PyTorch version ``pose_optimization_torch`` on a CPU tensor.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ..geometry.lie import se3_exp, se3_mul
+from ..utils import cuda_build
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -158,10 +164,10 @@ class PoseOptResult(NamedTuple):
     chi2: torch.Tensor      # [N] final per-obs chi2
 
 
-def pose_optimization(X, uv, inv_sigma2, valid, R0, t0, intr,
-                      rounds: int = 4, iters_per_round: int = 10,
-                      chi2_th: float = CHI2_MONO, ur=None, bf=0.0):
-    """Pose-only batched GN with staged outlier gating.
+def pose_optimization_torch(X, uv, inv_sigma2, valid, R0, t0, intr,
+                            rounds: int = 4, iters_per_round: int = 10,
+                            chi2_th: float = CHI2_MONO, ur=None, bf=0.0):
+    """Pose-only batched GN with staged outlier gating (plain PyTorch).
 
     X [N, 3] world points; uv [N, 2]; inv_sigma2 [N]; valid [N];
     (R0, t0) world->cam. ur: optional [N] right-image u (-1 = mono)."""
@@ -202,6 +208,79 @@ def pose_optimization(X, uv, inv_sigma2, valid, R0, t0, intr,
     c2, _ = chi2_of(R, t)
     return PoseOptResult(R=R, t=t, inliers=inliers, n_inliers=inliers.sum(),
                          chi2=c2)
+
+
+def pose_optimization(X, uv, inv_sigma2, valid, R0, t0, intr,
+                      rounds: int = 4, iters_per_round: int = 10,
+                      chi2_th: float = CHI2_MONO, ur=None, bf=0.0):
+    """Pose-only batched GN with staged outlier gating.
+
+    X [N, 3] world points; uv [N, 2]; inv_sigma2 [N]; valid [N];
+    (R0, t0) world->cam. ur: optional [N] right-image u (-1 = mono).
+
+    CUDA tensors run one launch of the hand-written kernel (counted in
+    ``pose_optimization.launches``); CPU tensors run the plain version
+    ``pose_optimization_torch``; any other device raises."""
+    if X.device.type == "cpu":
+        return pose_optimization_torch(X, uv, inv_sigma2, valid, R0, t0,
+                                       intr, rounds, iters_per_round,
+                                       chi2_th, ur, bf)
+    if X.device.type != "cuda":
+        raise ValueError(f"pose_optimization: unsupported device {X.device}")
+    return _pose_gn(X, uv, inv_sigma2, valid, R0, t0, intr, rounds,
+                    iters_per_round, chi2_th, ur, bf)
+
+
+def _pose_gn(X, uv, inv_sigma2, valid, R0, t0, intr, rounds,
+             iters_per_round, chi2_th, ur, bf):
+    """One launch of csrc/pose_gn.cu on the inputs' stream."""
+    f32 = torch.float32
+    N = X.shape[0]
+    X, sx = cuda_build.rows_arg(X, 3, f32, "X")
+    uv, suv = cuda_build.rows_arg(uv, 2, f32, "uv")
+    is2, sis2 = cuda_build.rows_arg(inv_sigma2, 0, f32, "inv_sigma2")
+    valid, sval = cuda_build.rows_arg(valid, 0, torch.bool, "valid")
+    ur_ptr, sur = None, 0
+    if ur is not None:
+        ur, sur = cuda_build.rows_arg(ur, 0, f32, "ur")
+        ur_ptr = ur.data_ptr()
+    if not (uv.shape[0] == is2.shape[0] == valid.shape[0] == N) or (
+            ur is not None and ur.shape[0] != N) or N < 1:
+        raise ValueError("pose_optimization: rows of unequal length")
+    if tuple(R0.shape) != (3, 3) or tuple(t0.shape) != (3,) \
+            or R0.dtype != f32 or t0.dtype != f32:
+        raise TypeError("pose_optimization: R0 [3, 3] and t0 [3] float32")
+    tensors = (X, uv, is2, valid, R0, t0) + (() if ur is None else (ur,))
+    if any(x.device != X.device for x in tensors):
+        raise ValueError("pose_optimization: inputs on different devices")
+    R0, t0 = R0.contiguous(), t0.contiguous()
+    fx, fy, cx, cy = (float(v) for v in intr)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    f = ctypes.c_float
+    fn = cuda_build.function(
+        "pose_gn", "ygz_pose_gn",
+        [p, i, p, i, p, i, p, i, p, i, i, p, p, f, f, f, f, f, f, f, i, i,
+         p, p, p, p, p, p])
+    R = torch.empty((3, 3), dtype=f32, device=X.device)
+    t = torch.empty(3, dtype=f32, device=X.device)
+    inliers = torch.empty(N, dtype=torch.bool, device=X.device)
+    n_inliers = torch.empty((), dtype=torch.int64, device=X.device)
+    chi2 = torch.empty(N, dtype=f32, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    cuda_build.check_launch(fn(
+        X.data_ptr(), sx, uv.data_ptr(), suv, is2.data_ptr(), sis2, ur_ptr,
+        sur, valid.data_ptr(), sval, N, R0.data_ptr(), t0.data_ptr(), fx, fy,
+        cx, cy, float(bf), float(chi2_th),
+        float(CHI2_STEREO * chi2_th / CHI2_MONO), int(rounds),
+        int(iters_per_round), R.data_ptr(), t.data_ptr(), inliers.data_ptr(),
+        n_inliers.data_ptr(), chi2.data_ptr(), stream), "pose_gn")
+    cuda_build.count_launch(pose_optimization)
+    return PoseOptResult(R=R, t=t, inliers=inliers, n_inliers=n_inliers,
+                         chi2=chi2)
+
+
+pose_optimization.launches = 0
 
 
 class BAResult(NamedTuple):

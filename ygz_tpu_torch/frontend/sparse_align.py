@@ -5,9 +5,14 @@ fine, never level 0), 4x4 patches around the previous frame's points,
 Jacobians precomputed once per level in the reference frame, a fixed number
 of Gauss-Newton iterations on SE(3) with per-pixel Huber weights and a
 Jacobi-preconditioned 6x6 solve; T <- T * exp(-delta).
+
+``sparse_image_align`` runs every level's loop in one launch of the
+hand-written CUDA kernel ``csrc/sparse_align.cu`` on CUDA tensors, and the
+plain PyTorch version ``sparse_image_align_torch`` on CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Sequence
 
 import torch
@@ -16,6 +21,7 @@ from ..backend.optim import solve_preconditioned
 from ..geometry.lie import se3_exp, se3_mul
 from ..ops.align import sample_patches
 from ..ops.image import in_bounds
+from ..utils import cuda_build
 
 PATCH_HALF = 2      # 4x4 patches like the reference
 PATCH = 2 * PATCH_HALF
@@ -28,10 +34,11 @@ class SparseAlignResult(NamedTuple):
     mean_res: torch.Tensor  # mean |residual| at convergence
 
 
-def sparse_image_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr,
-                       R_init, t_init, levels: Sequence[int] = (3, 2, 1),
-                       iters: int = 10):
-    """Estimate T_cur_ref by direct alignment.
+def sparse_image_align_torch(ref_pyr, cur_pyr, uv0, X_ref, valid, intr,
+                             R_init, t_init,
+                             levels: Sequence[int] = (3, 2, 1),
+                             iters: int = 10):
+    """Estimate T_cur_ref by direct alignment (plain PyTorch).
 
     ref_pyr, cur_pyr: tuples of [H_l, W_l] levels; uv0 [N, 2] level-0
     pixels in the ref frame; X_ref [N, 3] points in the REF camera frame;
@@ -109,3 +116,108 @@ def sparse_image_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr,
         mean_res = torch.where(vis, res, torch.zeros_like(res)).sum() \
             / torch.clamp(n_meas, min=1)
     return SparseAlignResult(R=R, t=t, n_meas=n_meas, mean_res=mean_res)
+
+
+def _level_args(pyr, levels, name):
+    """Per level of the walk: the image's pointer and (h, w, row stride)."""
+    ptrs, hws = [], []
+    for lvl in levels:
+        img = pyr[lvl]
+        if img.dtype != torch.float32 or img.dim() != 2:
+            raise TypeError(f"{name}[{lvl}] must be a 2-D float32 tensor")
+        if img.stride(1) != 1:
+            raise ValueError(f"{name}[{lvl}]: pixels of a row must be "
+                             f"adjacent")
+        h, w = img.shape
+        # sample_patches' 7x7 gather of the bordered reference patch
+        if h < PATCH + 3 or w < PATCH + 3:
+            raise ValueError(f"{name}[{lvl}] is {h}x{w}: below 7x7")
+        ptrs.append(img.data_ptr())
+        hws += [h, w, img.stride(0)]
+    return ptrs, hws
+
+
+def sparse_image_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr,
+                       R_init, t_init, levels: Sequence[int] = (3, 2, 1),
+                       iters: int = 10):
+    """Estimate T_cur_ref by direct alignment.
+
+    ref_pyr, cur_pyr: tuples of [H_l, W_l] levels; uv0 [N, 2] level-0
+    pixels in the ref frame; X_ref [N, 3] points in the REF camera frame;
+    valid [N]; intr (fx, fy, cx, cy) at level 0.
+
+    CUDA tensors run one launch of the hand-written kernel over all levels
+    (counted in ``sparse_image_align.launches``); CPU tensors run the plain
+    version ``sparse_image_align_torch``; any other device raises."""
+    if uv0.device.type == "cpu":
+        return sparse_image_align_torch(ref_pyr, cur_pyr, uv0, X_ref, valid,
+                                        intr, R_init, t_init, levels, iters)
+    if uv0.device.type != "cuda":
+        raise ValueError(f"sparse_image_align: unsupported device "
+                         f"{uv0.device}")
+    return _sparse_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr, R_init,
+                         t_init, levels, iters)
+
+
+def _sparse_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr, R_init, t_init,
+                  levels, iters):
+    """One launch of csrc/sparse_align.cu on the inputs' stream."""
+    f32 = torch.float32
+    dev = uv0.device
+    levels = tuple(levels)
+    N = uv0.shape[0]
+    uv0, suv = cuda_build.rows_arg(uv0, 2, f32, "uv0")
+    X_ref, sx = cuda_build.rows_arg(X_ref, 3, f32, "X_ref")
+    valid, sval = cuda_build.rows_arg(valid, 0, torch.bool, "valid")
+    if not (X_ref.shape[0] == valid.shape[0] == N) or N < 1:
+        raise ValueError("sparse_image_align: rows of unequal length")
+    if tuple(R_init.shape) != (3, 3) or tuple(t_init.shape) != (3,) \
+            or R_init.dtype != f32 or t_init.dtype != f32:
+        raise TypeError("sparse_image_align: R_init [3, 3] and t_init [3] "
+                        "float32")
+    ref_ptrs, ref_hws = _level_args(ref_pyr, levels, "ref_pyr")
+    cur_ptrs, cur_hws = _level_args(cur_pyr, levels, "cur_pyr")
+    tensors = [X_ref, valid, R_init, t_init] + [
+        pyr[lvl] for pyr in (ref_pyr, cur_pyr) for lvl in levels]
+    if any(x.device != dev for x in tensors):
+        raise ValueError("sparse_image_align: inputs on different devices")
+    R_init, t_init = R_init.contiguous(), t_init.contiguous()
+    # the level intrinsics as the plain version forms them (Python floats)
+    fx, fy, cx, cy = (float(v) for v in intr)
+    lv_intr = []
+    for lvl in levels:
+        s = 0.5 ** lvl
+        lv_intr += [s, fx * s, fy * s, (cx + 0.5) * s - 0.5,
+                    (cy + 0.5) * s - 0.5]
+    n_lv = len(levels)
+    ptrs = ctypes.c_void_p * n_lv
+    ints = ctypes.c_int * (3 * n_lv)
+    floats = ctypes.c_float * (5 * n_lv)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    fn = cuda_build.function(
+        "sparse_align", "ygz_sparse_align",
+        [p, i, p, i, p, i, i, p, p, p, p, p, i, p, p, i, p, p, p, p, p, p])
+    # the kernel owns its scratch layout and its level limit
+    scratch_floats = cuda_build.function(
+        "sparse_align", "ygz_sparse_align_scratch_floats", [i, i])(N, n_lv)
+    if scratch_floats < 0:
+        raise ValueError(f"sparse_image_align: {n_lv} levels is more than "
+                         f"the kernel takes")
+    scratch = torch.empty(scratch_floats, dtype=f32, device=dev)
+    R = torch.empty((3, 3), dtype=f32, device=dev)
+    t = torch.empty(3, dtype=f32, device=dev)
+    n_meas = torch.empty((), dtype=torch.int64, device=dev)
+    mean_res = torch.empty((), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda_build.check_launch(fn(
+        uv0.data_ptr(), suv, X_ref.data_ptr(), sx, valid.data_ptr(), sval, N,
+        ptrs(*ref_ptrs), ints(*ref_hws), ptrs(*cur_ptrs), ints(*cur_hws),
+        floats(*lv_intr), n_lv, R_init.data_ptr(), t_init.data_ptr(),
+        int(iters), scratch.data_ptr(), R.data_ptr(), t.data_ptr(),
+        n_meas.data_ptr(), mean_res.data_ptr(), stream), "sparse_align")
+    cuda_build.count_launch(sparse_image_align)
+    return SparseAlignResult(R=R, t=t, n_meas=n_meas, mean_res=mean_res)
+
+
+sparse_image_align.launches = 0

@@ -18,11 +18,11 @@ else raises. Kernel and plain version give the same bits for any threshold
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 import torch.nn.functional as F
 
+from ..utils import cuda_build
 from .image import pyramid_shapes, stack_rows, unstack_pyramid
 
 # Bresenham circle of radius 3 — (dx, dy), clockwise from (0,-3).
@@ -33,8 +33,6 @@ CIRCLE = (
 ARC = 10  # FAST-10
 # high-threshold corners rank above every low-threshold one in the merge
 HI_BONUS = 1000.0
-# the launch counts are bumped from the tracking and the mapping threads
-_count_lock = threading.Lock()
 
 
 def _shift(img, dx, dy):
@@ -106,20 +104,6 @@ def shi_tomasi_map(img, half_box: int = 4):
     return tr - det
 
 
-def _kernel(name, argtypes):
-    from ..utils import cuda_build
-
-    fn = getattr(cuda_build.load("fast_score"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_launch(err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def _check_args(x, name, *thresholds):
     if not isinstance(x, torch.Tensor) or x.dim() != 2 \
             or x.dtype != torch.float32:
@@ -139,16 +123,15 @@ def fast_score_map(img, threshold: float = 20.0):
     if img.device.type == "cuda":
         if not img.is_contiguous():
             raise ValueError("fast_score_map needs a contiguous CUDA tensor")
-        fn = _kernel("ygz_fast_score",
+        fn = cuda_build.function("fast_score", "ygz_fast_score",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         out = torch.empty_like(img)
         H, W = img.shape
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        _check_launch(fn(img.data_ptr(), out.data_ptr(), H, W,
-                         float(threshold), stream), "fast_score")
-        with _count_lock:
-            fast_score_map.launches += 1
+        cuda_build.check_launch(fn(img.data_ptr(), out.data_ptr(), H, W,
+                                   float(threshold), stream), "fast_score")
+        cuda_build.count_launch(fast_score_map)
         return out
     if img.device.type == "cpu":
         return fast_score_map_torch(img, threshold)
@@ -193,18 +176,17 @@ def fast_corner_maps(stack, height: int, n_levels: int, th_hi: float,
         shapes = pyramid_shapes(height, w0, n_levels, scale_factor)
         ints = ctypes.c_int * n_levels
         p_int = ctypes.POINTER(ctypes.c_int)
-        fn = _kernel("ygz_fast_corners",
+        fn = cuda_build.function("fast_score", "ygz_fast_corners",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                       p_int, p_int, p_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, ctypes.c_void_p])
         out = torch.empty_like(stack)
         stream = torch.cuda.current_stream(stack.device).cuda_stream
-        _check_launch(fn(stack.data_ptr(), out.data_ptr(), w0, ints(*offs),
-                         ints(*(h for h, _ in shapes)),
-                         ints(*(w for _, w in shapes)), n_levels,
-                         float(th_hi), float(th_lo), stream), "fast_corners")
-        with _count_lock:
-            fast_corner_maps.launches += 1
+        cuda_build.check_launch(
+            fn(stack.data_ptr(), out.data_ptr(), w0, ints(*offs),
+               ints(*(h for h, _ in shapes)), ints(*(w for _, w in shapes)),
+               n_levels, float(th_hi), float(th_lo), stream), "fast_corners")
+        cuda_build.count_launch(fast_corner_maps)
         return out
     if stack.device.type == "cpu":
         return fast_corner_maps_torch(stack, height, n_levels, th_hi, th_lo)

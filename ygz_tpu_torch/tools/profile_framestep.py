@@ -153,8 +153,8 @@ def main(argv=None):
     res["device_ms"] = dev_ms
     res["kernels"] = kernels
 
-    # the trace holds one frame (a chunk's ~1.8 * 10^5 kernels would make a
-    # file of tens of MB)
+    # the trace holds one frame (a chunk's eight would make a file eight
+    # times as large)
     os.makedirs(args.trace_dir, exist_ok=True)
     trace = os.path.join(args.trace_dir, "framestep_trace.json")
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])

@@ -3,8 +3,9 @@
 Each ``ygz_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a
 into ``build/ygz_tpu_torch/`` at the repository root (git-ignored) on first
 use, and loaded with ``ctypes``. The library file name carries a hash of
-the source, so an edited kernel is rebuilt and a stale one is never
-loaded. Nothing here runs at import time; a missing toolchain raises.
+the source and of the shared headers (``csrc/*.cuh``), so an edited kernel
+is rebuilt and a stale one is never loaded. Nothing here runs at import
+time; a missing toolchain raises.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -22,6 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# launch counts are bumped from the tracking and the mapping threads
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -34,10 +39,16 @@ def _nvcc() -> str:
                        "kernels of ygz_tpu_torch cannot be built")
 
 
+def sources() -> list[str]:
+    """The names of every kernel source, csrc/<name>.cu."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(name: str, verbose: bool = False) -> Path:
@@ -60,6 +71,13 @@ def build(name: str, verbose: bool = False) -> Path:
     return out
 
 
+def build_all(verbose: bool = False) -> list[Path]:
+    """Compile every csrc/*.cu, one nvcc process each, all at once."""
+    names = sources()
+    with ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(lambda n: build(n, verbose), names))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu (built on first use)."""
     lib = _loaded.get(name)
@@ -67,3 +85,45 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry `entry` of csrc/<name>.cu with its argument types set
+    (ctypes.c_void_p for every pointer and the stream) and an int return:
+    the cudaGetLastError() right after the launch."""
+    fn = getattr(load(name), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on the wrapper's plain-integer counter. A call made
+    while its stream is captured into a CUDA graph runs no kernel (the
+    graph's replays do, with no wrapper call) and is not counted."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        return
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def rows_arg(x, cols: int, dtype, name: str):
+    """(tensor, row stride in elements) of an [N, cols] (or [N] for cols 0)
+    kernel input on the card: rows may be strided views (the frame step's
+    cache columns), entries within a row must be adjacent."""
+    import torch
+
+    if not isinstance(x, torch.Tensor) or x.dtype != dtype:
+        raise TypeError(f"{name} must be a {dtype} tensor")
+    if x.dim() != (2 if cols else 1) or (cols and x.shape[1] != cols):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}")
+    if cols and x.stride(1) != 1:
+        x = x.contiguous()
+    return x, x.stride(0)
