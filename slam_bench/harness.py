@@ -1,0 +1,407 @@
+"""The benchmark's harness: finds a cell's configuration, traffic mix,
+limits and per-layer readers by name, sets the port up, runs the window,
+reads the traced slice and judges the timed path's output.
+
+Everything of one configuration, mix, cell or metric is a file of its own:
+
+- ``configs/<config>.json``: the deployment (source, sensor, what was
+  assumed), naming its settings file ``configs/<config>.yaml``
+  in the reference's cv::FileStorage format, which the port reads through
+  its own ``ygz_tpu_torch/io/config.py``;
+- ``traffic/<mix>.json``: the rate frames are due at, whether the
+  mapping worker runs, and the lap the generator renders (its texture from
+  the mix's ``texture_seed`` where it names one, else from the run's seed);
+- ``workloads/<cell>.json``: the cell's warm-up and traced frames and the
+  limits of its correctness numbers;
+- ``metrics/<metric>.py`` (else ``metrics/<metric less its last dotted
+  part>.py``): a ``read(ctx)`` returning the metric or None.
+
+Only the window is timed: set-up renders one lap on the device, builds the
+System, initializes it and tracks the warm frames, and drains the mapping
+worker. The window feeds ``System.track_monocular`` one frame at a time,
+each when it is due.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import re
+import statistics
+import time
+from collections import Counter
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+
+from . import reference, scene
+
+BENCH = Path(__file__).resolve().parent
+ROOT = BENCH.parent
+
+
+# ------------------------------------------------------------------ lookups
+def benchmark_spec() -> dict:
+    return json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def load_cell(name: str) -> SimpleNamespace:
+    """The cell `name` of BENCHMARK.json with its configuration, mix,
+    workload file and metric entries."""
+    spec = benchmark_spec()
+    cells = {w["name"]: w for w in spec["workloads"]}
+    if name not in cells:
+        raise SystemExit(f"unknown workload {name!r}; BENCHMARK.json has "
+                         f"{sorted(cells)}")
+    cell = cells[name]
+    conf = {c["name"]: c for c in spec["configs"]}[cell["config"]]
+    config = json.loads((ROOT / conf["file"]).read_text())
+    config["settings_path"] = str((ROOT / conf["file"]).parent
+                                  / config["settings"])
+    e2e = [m for m in spec["end_to_end"]
+           if name in m.get("workloads", [name])]
+    e2e_names = {m["name"] for m in e2e}
+    per_layer = [m for m in spec["per_layer"]
+                 if (name in m["workloads"] if "workloads" in m
+                     else m["moves"] in e2e_names)]
+    return SimpleNamespace(
+        name=name, chips=int(cell["chips"]), config=config,
+        traffic=json.loads((BENCH / "traffic" / f"{cell['traffic']}.json")
+                           .read_text()),
+        workload=json.loads((BENCH / "workloads" / f"{name}.json")
+                            .read_text()),
+        end_to_end=e2e, per_layer=per_layer)
+
+
+def metric_reader(name: str):
+    """The read(ctx) of metrics/<name>.py, else of metrics/<name less its
+    last dotted part>.py."""
+    for stem in (name, name.rsplit(".", 1)[0]):
+        path = BENCH / "metrics" / f"{stem}.py"
+        if path.exists():
+            spec = importlib.util.spec_from_file_location(
+                f"slam_bench.metrics.{stem}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod.read
+    raise FileNotFoundError(f"no reader for metric {name!r} under "
+                            f"{BENCH / 'metrics'}")
+
+
+def settings_numbers(path) -> dict:
+    """The scalar `key: number` lines of a settings file, read here so the
+    generator takes nothing from the port."""
+    text = Path(path).read_text()
+    out = {}
+    for m in re.finditer(r"^([A-Za-z][\w.]*):\s*([-+0-9.eE]+)\s*(?:#.*)?$",
+                         text, re.M):
+        out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def camera_dict(nums: dict, scale: float = 1.0) -> dict:
+    """The renderer's camera from the settings (scaled for CPU rehearsals:
+    intrinsics and size together, distortion unchanged)."""
+    return {"fx": nums["Camera.fx"] * scale, "fy": nums["Camera.fy"] * scale,
+            "cx": (nums["Camera.cx"] + 0.5) * scale - 0.5,
+            "cy": (nums["Camera.cy"] + 0.5) * scale - 0.5,
+            "width": int(round(nums["Camera.width"] * scale)),
+            "height": int(round(nums["Camera.height"] * scale)),
+            "dist": [nums.get(f"Camera.{k}", 0.0)
+                     for k in ("k1", "k2", "p1", "p2", "k3")]}
+
+
+# ---------------------------------------------------------------- generator
+class Stream:
+    """The frames of the cell, in order: global frame j is the lap's frame
+    j mod n_lap at timestamp j / fps."""
+
+    def __init__(self, frames, fps, periodic=True):
+        self.frames = frames
+        self.fps = float(fps)
+        self.periodic = periodic
+        self.j = 0
+
+    def take(self, n):
+        """(frames, timestamps, global ids) of the next n frames."""
+        ids = list(range(self.j, self.j + n))
+        self.j += n
+        if not self.periodic and ids[-1] >= len(self.frames):
+            raise RuntimeError("the rehearsal's partial lap ran out")
+        frames = [self.frames[j % len(self.frames)] for j in ids]
+        return frames, [j / self.fps for j in ids], ids
+
+
+# ------------------------------------------------------------------- runner
+class Run:
+    """One run of a cell on `device`: set-up, window, optional traced slice,
+    the judgement. `scale`, `lap_frames` and `overrides` (TrackerConfig
+    fields) are for CPU rehearsals, and `control` for the correctness
+    controls (``readings.py``); the benchmark's own runs leave them."""
+
+    def __init__(self, cell, seed, device="cuda", scale=1.0, lap_frames=None,
+                 overrides=None, control=None):
+        self.cell = cell
+        self.seed = int(seed)
+        self.device = device
+        self.scale = scale
+        self.lap_frames = lap_frames
+        self.overrides = overrides or {}
+        self.control = control
+        self.cuda = str(device).startswith("cuda")
+        self.mix = cell.traffic
+        self.records = []        # (global id, state, T_cw) of the window
+        self.notes = {}
+
+    # ............................................................ set-up
+    def setup(self):
+        import torch
+
+        from ygz_tpu_torch.io.config import load_settings
+        from ygz_tpu_torch.system import Sensor, System
+
+        cfgf = self.cell.config
+        nums = settings_numbers(cfgf["settings_path"])
+        fps = nums["Camera.fps"]
+        lapd = self.mix["lap"]
+        self.lap = scene.Lap(lapd["seconds"], lapd["terms"],
+                             scene.lap_phase(self.seed, lapd["seconds"]))
+        # a mix with a texture_seed films one fixed scene, as a recorded
+        # sequence is one; the run's seed then sets only where the lap starts
+        tex_seed = lapd.get("texture_seed", self.seed)
+        t0 = time.perf_counter()
+        frames = scene.render_lap(self.lap, camera_dict(nums, self.scale),
+                                  fps, tex_seed, self.device,
+                                  lapd["texture_px"], self.lap_frames)
+        self.stream = Stream(frames, fps, periodic=self.lap_frames is None)
+        if self.cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        self.notes["render_s"] = time.perf_counter() - t0
+
+        s = load_settings(cfgf["settings_path"])
+        cam = s.camera
+        if self.control not in (None, "pinhole", "tf32"):
+            raise ValueError(f"unknown control {self.control!r}")
+        if self.control == "pinhole":
+            # the configuration's distortion dropped: frames tracked as if
+            # the lens were a pinhole
+            cam = cam._replace(dist=torch.zeros_like(cam.dist))
+        # TF32 matmuls and convolutions only in the TF32 control (the port
+        # pins both off)
+        torch.backends.cuda.matmul.allow_tf32 = self.control == "tf32"
+        torch.backends.cudnn.allow_tf32 = self.control == "tf32"
+        if self.scale != 1.0:
+            from ygz_tpu_torch.geometry.camera import Camera
+
+            c = camera_dict(nums, self.scale)
+            cam = Camera.make(c["fx"], c["fy"], c["cx"], c["cy"],
+                              c["width"], c["height"], cam.dist)
+        cfg = s.tracker
+        cfg.async_mapping = bool(self.mix["async_mapping"])
+        cfg.track_batch = 1
+        for k, v in self.overrides.items():
+            setattr(cfg, k, v)
+        self.tracker_cfg = cfg
+        t0 = time.perf_counter()
+        self.system = System(cam, Sensor.MONOCULAR, config=cfg,
+                             device=self.device)
+        self.notes["system_s"] = time.perf_counter() - t0
+
+        # initialize frame by frame, then the warm frames
+        t0 = time.perf_counter()
+        wl = self.cell.workload
+        n = 0
+        while True:
+            n += 1
+            if self._feed(1)[0][1] == "OK":
+                break
+            if n >= wl["max_init_frames"]:
+                raise RuntimeError(f"not initialized after {n} frames")
+        self.notes["init_frames"] = n
+        self.notes["init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._feed(wl["warm_frames"])
+        self.system.shutdown()          # the window starts with no tail
+        self._sync()
+        self.notes["warm_s"] = time.perf_counter() - t0
+
+    def _sync(self):
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+
+    # ............................................................ feeding
+    def _feed(self, n):
+        """n frames, one track_monocular call each: [(id, state, T_cw)]."""
+        frames, ts, ids = self.stream.take(n)
+        out = []
+        for k in range(n):
+            r = self.system.track_monocular(frames[k], ts[k])
+            out.append((ids[k], r[0], r[1]))
+        return out
+
+    # ............................................................ window
+    def window(self, seconds):
+        """The measured window: frames due at the mix's fixed rate from the
+        window's start, each fed when due, or at once when late (never
+        dropped); latency from the due time to the pose returned. Returns
+        the end-to-end readings."""
+        rate = float(self.mix["rate_hz"])
+        n_due = int(np.ceil(seconds * rate))
+        lat, late = [], []
+        t0 = time.perf_counter()
+        for k in range(n_due):
+            due = t0 + k / rate
+            now = time.perf_counter()
+            if now < due:
+                time.sleep(due - now)
+                now = time.perf_counter()
+            late.append(now - due)
+            self.records += self._feed(1)
+            lat.append(time.perf_counter() - due)
+        self.window_s = time.perf_counter() - t0
+        end = t0 + seconds
+        self.notes["feeder_late_ms_p50"] = 1e3 * statistics.median(late)
+        self.notes["feeder_late_ms_max"] = 1e3 * max(late)
+        self.notes["backlog_at_close"] = int(sum(
+            t0 + k / rate + late[k] > end for k in range(n_due)))
+        lat_ms = 1e3 * np.asarray(lat)
+        self.latencies_ms = lat_ms.tolist()
+        return {"frame_latency_p50_ms": float(np.percentile(lat_ms, 50))}
+
+    def traced_slice(self):
+        """The cell's traced frames, fed at the mix's rate, under
+        torch.profiler."""
+        from .trace import traced
+
+        n = int(self.cell.workload["trace_frames"])
+        rate = float(self.mix["rate_hz"])
+
+        def run():
+            t0 = time.perf_counter()
+            for k in range(n):
+                delay = t0 + k / rate - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                self.records += self._feed(1)
+            return n
+
+        return traced(run)
+
+    def stage_totals(self):
+        t = self.system.tracker.timer
+        return dict(t.total), dict(t.count)
+
+    # ............................................................ judge
+    def numbers(self):
+        """The correctness numbers of the window's returned states and
+        poses and of the map."""
+        fps = self.stream.fps
+        ids = np.array([r[0] for r in self.records])
+        ok = np.array([r[1] == "OK" for r in self.records])
+        T = np.stack([np.asarray(r[2], np.float64) for r in self.records])
+        true_c = self.lap.centre(ids / fps)
+        out = {"lost_pct": reference.lost_pct(ok)}
+        pose = reference.pose_numbers(ids, ok, T[:, :3, :3], T[:, :3, 3],
+                                      true_c)
+        if pose is not None:
+            out.update(pose)
+        smap = self.system.map
+        kv = np.nonzero(smap.kf_valid[: smap.n_kf])[0]
+        kf_c = reference.centres(smap.kf_R[kv], smap.kf_t[kv])
+        kf_true = self.lap.centre(smap.kf_ts[kv])
+        pts = smap.pt_xyz[: smap.n_pt][smap.pt_valid[: smap.n_pt]]
+        out["map_err_med_pct"] = reference.map_err_med_pct(kf_c, kf_true,
+                                                           pts)
+        return out
+
+    def close(self):
+        """Drain the mapping worker (its errors raise here)."""
+        if getattr(self, "system", None) is not None:
+            self.system.shutdown()
+
+    def stop_worker(self):
+        """End the mapping worker's thread (a process that runs several
+        cells in turn)."""
+        tr = self.system.tracker
+        if tr._map_worker is not None:
+            tr._map_queue.put(None)
+            tr._map_worker.join(timeout=60)
+
+
+def run_cell(cell, seed, seconds, trace=False, device="cuda", t_start=None,
+             **rehearsal):
+    """One whole run of a cell: (result record without the device block,
+    compared rows, the Run). Set-up counts from `t_start` (the process's
+    start in the CLI; else this call)."""
+    import torch
+
+    t_start = time.perf_counter() if t_start is None else t_start
+    run = Run(cell, seed, device=device, **rehearsal)
+    run.notes["before_setup_s"] = time.perf_counter() - t_start
+    run.setup()
+    setup_s = time.perf_counter() - t_start
+    before = run.stage_totals()
+    e2e = run.window(seconds)
+    after = run.stage_totals()
+    frames_window = len(run.records)
+    tr = run.traced_slice() if trace else None
+    run.close()
+    peak = torch.cuda.max_memory_allocated() if run.cuda else 0
+    numbers = run.numbers()
+    correct, rows = reference.judge(numbers, cell.workload["limits"])
+    failed = sum(r[1] != "OK" for r in run.records)
+
+    metrics = {}
+    if trace:
+        stages = {k: (after[0].get(k, 0.0) - before[0].get(k, 0.0),
+                      after[1].get(k, 0) - before[1].get(k, 0))
+                  for k in after[0]}
+        ctx = SimpleNamespace(frames=frames_window, window_s=run.window_s,
+                              stages=stages, trace=tr,
+                              latencies_ms=run.latencies_ms,
+                              tracker_cfg=run.tracker_cfg,
+                              camera=run.system.cam)
+        for m in cell.per_layer:
+            v = metric_reader(m["name"])(ctx)
+            if v is not None:
+                metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
+    else:
+        e2e["setup_s"] = setup_s
+        for m in cell.end_to_end:
+            metrics[m["name"]] = {"value": float(e2e[m["name"]]),
+                                  "unit": m["unit"]}
+    if tr is not None:
+        # the GN kernels' records in the slice by the host call that
+        # launched them (a graph replay: cudaGraphLaunch)
+        run.notes["gn_kernels_by_launch"] = {
+            k: dict(Counter(str(by) for name, _, _, by in tr.kernels
+                            if k in name))
+            for k in ("pose_gn_kernel", "sparse_align_kernel")}
+    run.notes.update(numbers=numbers, phase_s=run.lap.phase,
+                     failed_runs=failed_runs(run.records),
+                     window_frames=frames_window,
+                     keyframes=int(run.system.map.kf_valid.sum()),
+                     loops_closed=int(run.system.tracker.n_loops_closed))
+    result = {"correct": bool(correct), "attempted": len(run.records),
+              "failed": int(failed), "metrics": metrics,
+              "memory_peak_bytes": int(peak)}
+    if tr is not None:
+        result["trace"] = tr
+    return result, rows, run
+
+
+def failed_runs(records):
+    """[[first id, last id, state], ...] of the stretches of frames that
+    came back in a state other than OK."""
+    out = []
+    for j, state, _ in records:
+        if state == "OK":
+            continue
+        if out and out[-1][1] == j - 1 and out[-1][2] == state:
+            out[-1][1] = j
+        else:
+            out.append([j, j, state])
+    return out
