@@ -32,6 +32,7 @@ import os
 import queue
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional
 
@@ -51,7 +52,7 @@ from ..ops import matching
 from ..ops.image import level0
 from ..ops.stereo import stereo_match_features
 from ..parallel.dist_ba import Mesh
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, set_frame
 from .extractor import OrbExtractor
 from .framestep import (build_pyramid_stacked, frame_step, frame_step_batch,
                         make_carry, pack_cache_np, pack_pred_np, unpack_out)
@@ -305,6 +306,22 @@ class MonoTracker:
         return (self._map_worker is None
                 or self._map_queue.unfinished_tasks == 0)
 
+    @contextmanager
+    def _locked(self):
+        """Hold the map lock. The wait to take it is a stage of its own:
+        mapping.lock_wait on the worker, track.lock_wait on any other
+        thread (a re-entry of the RLock takes no time)."""
+        lock = self._map_lock
+        with self.timer.stage(
+                "mapping.lock_wait"
+                if threading.current_thread() is self._map_worker
+                else "track.lock_wait"):
+            lock.acquire()
+        try:
+            yield
+        finally:
+            lock.release()
+
     def _join_mapper(self):
         """Order this thread's stream after the mapping stream's work, before
         it reads device tensors the worker made (keyframe feature mirrors).
@@ -326,7 +343,7 @@ class MonoTracker:
         """Clear map and tracking state (reference Tracking::Reset). Jobs
         queued against the old map drop themselves; one in flight finishes
         first (the map lock); the old worker stops after its queue."""
-        with self._map_lock:
+        with self._locked():
             traj = self.trajectory if keep_trajectory else []
             # bake relative-pose records to absolute against the dying map
             for rec in traj:
@@ -369,7 +386,12 @@ class MonoTracker:
         """Process one grayscale frame. Returns (state, R, t) with (R, t)
         the world->camera pose (identity until initialized). `depth`: an
         optional [H, W] metric depth map aligned with `img` (RGB-D)."""
+        with self.timer.stage("track"):
+            return self._track(img, ts, depth)
+
+    def _track(self, img, ts, depth):
         self.frame_id += 1
+        set_frame(self.frame_id)
         self._cur_depth = depth
         if self.state == State.NOT_INITIALIZED:
             with self.timer.stage("pyramid"):
@@ -414,7 +436,7 @@ class MonoTracker:
         KFs)."""
         if rec.ref_kf < 0 or rec.R_r is None:
             return rec.R, rec.t
-        with self._map_lock:
+        with self._locked():
             Rk, tk = self.map.resolve_pose(rec.ref_kf)
         return rec.R_r @ Rk, rec.R_r @ tk + rec.t_r
 
@@ -551,7 +573,7 @@ class MonoTracker:
         _on_map_corrected."""
         if (len(self._snap[0]) < self.cfg.cache_refill_below
                 and self._tail_idle()):
-            with self._map_lock:
+            with self._locked():
                 self._join_mapper()
                 self._rebuild_cache()
         snap = self._snap
@@ -575,20 +597,24 @@ class MonoTracker:
             dev = self._snap_cache(snap)
             if self.device.type == "cuda":
                 graph = self._frame_graph()
-                graph.load(self._carry, dev, pred_vec)
-                packed = graph.step(torch.from_numpy(np.ascontiguousarray(
-                    img)))
+                with self.timer.stage("frame_step.dispatch"):
+                    graph.load(self._carry, dev, pred_vec)
+                    packed = graph.step(torch.from_numpy(
+                        np.ascontiguousarray(img)))
                 self._carry = graph.carry
                 pyr_fn = _once(graph.carry.pyr.clone)
             else:
-                self._carry, packed = frame_step(
-                    self._t(img), self._carry, dev, pred_vec, self._remap,
-                    self.intr, n_levels=cfg.n_levels,
-                    scale_factor=cfg.scale_factor,
-                    min_align=cfg.min_align_points)
+                with self.timer.stage("frame_step.dispatch"):
+                    self._carry, packed = frame_step(
+                        self._t(img), self._carry, dev, pred_vec,
+                        self._remap, self.intr, n_levels=cfg.n_levels,
+                        scale_factor=cfg.scale_factor,
+                        min_align=cfg.min_align_points)
                 pyr = self._carry.pyr
                 pyr_fn = lambda: pyr  # noqa: E731
-            out = unpack_out(packed.cpu().numpy(), cfg.max_track)
+            with self.timer.stage("frame_step.readback"):
+                packed = packed.cpu().numpy()
+            out = unpack_out(packed, cfg.max_track)
         ok, R, t, _ = self._consume_out(out, ids, ts, pyr_fn,
                                         snap_xyz=snap[5])
         return ok, R, t
@@ -630,7 +656,7 @@ class MonoTracker:
             snap = self._tracking_snapshot()
             t0 = time.perf_counter()
             outs_fn, pyrs = self._dispatch_chunk(imgs[j: j + B], snap)
-            self.timer.total["frame_step"] += time.perf_counter() - t0
+            self.timer.add("frame_step", time.perf_counter() - t0, count=0)
             return (j, snap, outs_fn, pyrs)
 
         while i < n_total or inflight:
@@ -646,11 +672,11 @@ class MonoTracker:
             i0, snap, outs_fn, pyrs = inflight.pop(0)
             t0 = time.perf_counter()
             outs = outs_fn()          # ONE [B, packed] readback
-            self.timer.total["frame_step"] += time.perf_counter() - t0
-            self.timer.count["frame_step"] += B
+            self.timer.add("frame_step", time.perf_counter() - t0, count=B)
             consumed, clean = 0, True
             for b in range(B):
                 self.frame_id += 1
+                set_frame(self.frame_id)
                 self._cur_depth = None
                 out_b = unpack_out(outs[b], cfg.max_track)
                 ok, R, t, clean = self._consume_out(
@@ -1014,7 +1040,7 @@ class MonoTracker:
                                  min_inliers: int = 10):
         """Window-match the cached points at the predicted pose; widen the
         window when matches are scarce or the consensus is weak."""
-        with self._map_lock:
+        with self._locked():
             ids = self._cache.copy()
         best_n, best_res = 0, None
         for radius in (15.0, 30.0):
@@ -1068,7 +1094,7 @@ class MonoTracker:
             return None
         g1 = self._kf_groups(kf)
         g2 = None if g1 is None else self._t(self._frame_groups(f))
-        with self._map_lock:
+        with self._locked():
             bound = smap.kf_feat_pt[kf] >= 0
             if int(bound.sum()) < min_matches:
                 return None
@@ -1099,7 +1125,7 @@ class MonoTracker:
         """Feature-method TrackLocalMap: project the local map with the
         recovered pose, window-match, final pose opt. Returns (R, t,
         pt_ids, uv, lvl) or None."""
-        with self._map_lock:
+        with self._locked():
             self._join_mapper()
             self._rebuild_cache()
             ids = self._cache.copy()
@@ -1125,7 +1151,7 @@ class MonoTracker:
         keyframes the worker writes."""
         if self.bow_index is None:
             return False
-        with self._map_lock:
+        with self._locked():
             self._join_mapper()
             return self._relocalize_locked(pyr)
 
@@ -1217,7 +1243,7 @@ class MonoTracker:
         before its mapping tail, so triangulation, fusion and BoW see
         complete descriptors. Dropped when reset() swapped the map."""
         feats = self._extract_kf_features(pyr, uv_pad, lvl_pad, val_pad)
-        with self._map_lock:
+        with self._locked():
             if smap is not self.map or kf >= smap.n_kf:
                 return
             mm = min(len(feats["uv"]), smap.max_feat)
@@ -1259,7 +1285,7 @@ class MonoTracker:
                      "ur": np.full(cap, -1.0, np.float32)}
         else:
             feats = self._extract_kf_features(pyr, uv_pad, lvl_pad, val_pad)
-        with self._map_lock:
+        with self._locked():
             kf = smap.add_keyframe(R, t, feats, ts=ts,
                                    frame_id=self.frame_id, pyramid=pyr)
             # placeholder descriptor rows until the worker's extraction:
@@ -1280,17 +1306,24 @@ class MonoTracker:
             return smap.kf_R[kf].copy(), smap.kf_t[kf].copy()
         # the worker's stream starts after the keyframe's pyramid exists
         ready = self._record_event()
+        frame = self.frame_id
 
         def tail_job():
-            if ready is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(ready)
-                pyr.record_stream(stream)
-            if defer:
-                self._extract_into_kf(smap, kf, pyr, uv_pad, lvl_pad,
-                                      val_pad)
-            self._mapping_tail(smap, kf, pyr)
+            set_frame(frame)
+            self.timer.add("mapping.queue_wait", time.perf_counter() - put_t,
+                           start_ns=put_ns)
+            with self.timer.stage("mapping.job"):
+                if ready is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(ready)
+                    pyr.record_stream(stream)
+                if defer:
+                    with self.timer.stage("mapping.extract"):
+                        self._extract_into_kf(smap, kf, pyr, uv_pad,
+                                              lvl_pad, val_pad)
+                self._mapping_tail(smap, kf, pyr)
 
+        put_t, put_ns = time.perf_counter(), time.time_ns()
         self._map_queue.put(tail_job)
         # tracking keeps the pre-BA pose; corrections land through the map
         return smap.kf_R[kf].copy(), smap.kf_t[kf].copy()
@@ -1325,7 +1358,7 @@ class MonoTracker:
         and loop closing, rebuild the cache. Inline or on the worker; holds
         the map lock throughout. A job queued before reset() swapped the
         map (or whose keyframe is gone) drops itself."""
-        with self.timer.stage("mapping_tail"), self._map_lock:
+        with self.timer.stage("mapping_tail"), self._locked():
             if smap is not self.map or kf >= smap.n_kf \
                     or not smap.kf_valid[kf]:
                 return

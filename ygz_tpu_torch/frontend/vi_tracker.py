@@ -229,7 +229,7 @@ class MonoViTracker(MonoTracker):
         if xyz is not None:
             X[:n] = xyz[:n]
         else:
-            with self._map_lock:
+            with self._locked():
                 X[:n] = self.map.pt_xyz[ids[:n]]
         uvp[:n] = uv[:n]
         is2[:n] = 0.25 ** lvl[:n]
@@ -379,7 +379,7 @@ class MonoViTracker(MonoTracker):
         """Record this keyframe's IMU window before its mapping tail is run
         or queued (the worker's window BA must see a complete chain); the
         chain is shared with the worker under the map lock."""
-        with self._map_lock:
+        with self._locked():
             prev_t = self.map.kf_ts[self._kf_order[-1]] if self._kf_order \
                 else (self._imu_since_kf[0][0] if self._imu_since_kf else ts)
             self._kf_imu[kf] = _pack_window(self._imu_since_kf, prev_t,
@@ -406,7 +406,7 @@ class MonoViTracker(MonoTracker):
                 # VINS init rewrites the whole map (rescale): run it only
                 # against a drained mapping queue
                 self.wait_mapping_idle()
-            with self.timer.stage("vins_init"), self._map_lock:
+            with self.timer.stage("vins_init"), self._locked():
                 self._try_vins_init()
         # the window BA at this keyframe rewrote poses and points: the
         # carried marginal prior and the previous frame's landmark snapshot

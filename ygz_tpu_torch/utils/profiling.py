@@ -1,4 +1,4 @@
-"""Per-stage wall-clock profiling.
+"""Per-stage wall-clock profiling and the port's span recorder.
 
 Every tracker carries a StageTimer, so the per-frame budget (pyramid, frame
 step, keyframe, mapping tail and its sub-stages) can be read at runtime;
@@ -6,19 +6,83 @@ step, keyframe, mapping tail and its sub-stages) can be read at runtime;
 CUDA events around a run; this is the cheap always-on layer.
 ``launch_calls`` counts what one call asks of the card; ``device_events``
 returns the device records of its kernels and copies.
+
+Spans. While a ``torch.profiler`` session is running, every StageTimer
+stage also appends one ``Span(name, start_ns, end_ns, thread, frame)`` to
+one process-wide buffer of the last ``SPAN_CAPACITY`` spans. Both edges are
+read on ``time.time_ns()``, the clock of kineto's host events, so a span
+lines up with the session's device records. ``thread`` is the OS thread id
+(``threading.get_native_id``); ``frame`` is the frame that caused the
+span, as ``set_frame`` last set it on that thread: the tracker sets its
+frame id on the tracking thread, the mapping worker the keyframe's frame id
+for each job. A span's parent is the enclosing span on its thread. Without
+a session nothing is recorded, and a stage costs one flag read more than
+its totals. To get spans, run a session and read them back::
+
+    with torch.profiler.profile(activities=[...]):
+        lo = time.time_ns()
+        system.track_monocular(img, ts)
+        hi = time.time_ns()
+    for s in profiling.spans(lo, hi):
+        ...
 """
 from __future__ import annotations
 
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from contextlib import contextmanager
+from typing import NamedTuple
+
+import torch.autograd.profiler as _autograd_profiler
+
+SPAN_CAPACITY = 1 << 16
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int       # time.time_ns() at entry
+    end_ns: int         # time.time_ns() at exit
+    thread: int         # threading.get_native_id()
+    frame: int          # the cause: the frame id set_frame gave the thread
+
+
+class _Thread(threading.local):
+    """Per thread: its OS id, read once, and the frame set_frame gave it."""
+    frame = -1
+
+    def __init__(self):
+        self.id = threading.get_native_id()
+
+
+_SPANS: deque = deque(maxlen=SPAN_CAPACITY)
+_thread = _Thread()
+
+
+def set_frame(frame_id: int):
+    """The frame this thread's following spans are caused by."""
+    _thread.frame = frame_id
+
+
+def _record(name, start_ns, end_ns):
+    _SPANS.append(Span(name, start_ns, end_ns, _thread.id, _thread.frame))
+
+
+def spans(lo_ns: int = 0, hi_ns: int = None) -> list:
+    """The recorded spans that overlap [lo_ns, hi_ns) (time.time_ns()),
+    by start."""
+    hi = float("inf") if hi_ns is None else hi_ns
+    return sorted((s for s in _SPANS.copy()
+                   if s.end_ns > lo_ns and s.start_ns < hi),
+                  key=lambda s: s.start_ns)
 
 
 class StageTimer:
     """Accumulates wall-clock per named stage (perf_counter pairs). Host
     time only: device work inside a stage is attributed to it when the
     stage ends on a blocking readback, which is how the tracker consumes
-    device results."""
+    device results. While torch.profiler runs, each stage is also a span
+    of the module's recorder."""
 
     def __init__(self):
         self.total = defaultdict(float)
@@ -26,12 +90,28 @@ class StageTimer:
 
     @contextmanager
     def stage(self, name: str):
+        rec = _autograd_profiler._is_profiler_enabled
+        start_ns = time.time_ns() if rec else 0
         t0 = time.perf_counter()
         try:
             yield
         finally:
             self.total[name] += time.perf_counter() - t0
             self.count[name] += 1
+            if rec:
+                _record(name, start_ns, time.time_ns())
+
+    def add(self, name: str, seconds: float, start_ns: int = None,
+            count: int = 1):
+        """A stage timed by the caller: `seconds` long, from `start_ns`
+        (time.time_ns()) or ending now, counted `count` times."""
+        self.total[name] += seconds
+        self.count[name] += count
+        if _autograd_profiler._is_profiler_enabled:
+            ns = round(seconds * 1e9)
+            if start_ns is None:
+                start_ns = time.time_ns() - ns
+            _record(name, start_ns, start_ns + ns)
 
     def mean_ms(self):
         return {k: 1e3 * self.total[k] / max(self.count[k], 1)
