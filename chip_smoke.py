@@ -66,16 +66,19 @@ Phases (any failure raises and the script exits non-zero):
      per frame). Every tracked path below replays the captured frame step
      too;
   3c. (between the bench and the graph check of 3b) the frame step's two
-     Gauss-Newton kernels (csrc/pose_gn.cu, csrc/sparse_align.cu) against
-     their plain versions on the card: at the main path's inputs,
-     recorded from one eager frame step of the bench's tracker (which
-     must launch pose_gn twice and sparse_align once; one graph replay
-     must run the same three), and at seeded edge cases (stereo rows, one
+     Gauss-Newton kernels (csrc/pose_gn.cu, csrc/sparse_align.cu) and the
+     direct tracker's kernel (csrc/direct_align.cu) against their plain
+     versions on the card: at the main path's inputs, recorded from one
+     eager frame step of the bench's tracker (which must launch pose_gn
+     twice, sparse_align once and direct_align twice; one graph replay
+     must run the same five), and at seeded edge cases (stereo rows, one
      row, 1,500 rows, points behind the camera, the PnP polish's gate, no
      valid row; two levels of 3 iterations, points on the level borders,
-     no valid point); two launches repeating bit for bit; device and
-     CUDA-event times against the plain versions, the bound and the time
-     per GN step. Every path counts both kernels' wrapper launches;
+     no valid point; NaN patches, no valid point, points behind the
+     camera, the refinement against a known pose); two launches repeating
+     bit for bit; device and CUDA-event times against the plain versions,
+     the bound and the time per step, and the replay's device time per
+     frame. Every path counts the three kernels' wrapper launches;
   10b. the dataset runners from trees on disk, written with the port's PNG
      encoder under build/smoke_trees/: a EuRoC tree (the 160 frames of
      phase 3 without the exposure drop, its ground truth, a settings file
@@ -166,6 +169,23 @@ ARC_OPS, TH_OPS, MERGE_OPS, NMS_OPS = 16 + 8 + 16 + 59, 3, 3, 7
 POSE_ROW_OPS, POSE_STEREO_ROW_OPS, GN_STEP_OPS = 187, 82, 480
 POSE_GATE_OPS, POSE_STEREO_GATE_OPS = 36, 7
 ALIGN_SETUP_OPS, ALIGN_POINT_OPS, ALIGN_PIXEL_OPS = 430, 188, 84
+
+
+def direct_align_work(n):
+    """(bytes, operations) of the direct tracker's two launches per frame
+    over n points, as slam_bench/metrics/direct_align_roofline.py counts
+    them for the benchmark's direct_align_roofline."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "slam_bench", "metrics", "direct_align_roofline.py")
+    spec = importlib.util.spec_from_file_location("direct_align_roofline",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.direct_align_work(n)
+
+
 # the stereo and RGB-D phases: the EuRoC stereo rig (examples/
 # stereo_euroc.py: f, bf = baseline * f) and the TUM fr1 camera (examples/
 # rgbd_tum.py: fx; its distortion dropped, as the renderer draws
@@ -1814,11 +1834,12 @@ def hold_sparse_align(label, kw):
 
 def record_step_calls(system, img):
     """One eager frame step of `img` from the tracker's carry and cache on
-    the card, with the arguments of its pose_optimization and
-    sparse_image_align calls recorded (as passed: the cache's strided
-    columns, the carry pyramid's level views; an eager step writes none of
-    them); returns (pose calls, align calls, launches of each kernel in
-    that step)."""
+    the card, with the arguments of its pose_optimization,
+    sparse_image_align and track_local_map_direct calls recorded (as
+    passed: the cache's strided columns, the carry pyramid's level views;
+    an eager step writes none of them); returns (pose calls, align calls,
+    direct calls, launches of each kernel in that step: pose_gn,
+    sparse_align, direct_align)."""
     import torch
     from ygz_tpu_torch.backend import optim
     from ygz_tpu_torch.frontend import direct_tracker, framestep
@@ -1826,7 +1847,7 @@ def record_step_calls(system, img):
 
     tr = system.tracker
     graph = tr._graph
-    calls = {"pose": [], "align": []}
+    calls = {"pose": [], "align": [], "direct": []}
 
     def recorder(key, fn, names):
         def rec(*args, **kw):
@@ -1837,13 +1858,20 @@ def record_step_calls(system, img):
     pose_names = ("X", "uv", "inv_sigma2", "valid", "R0", "t0", "intr")
     align_names = ("ref_pyr", "cur_pyr", "uv0", "X_ref", "valid", "intr",
                    "R_init", "t_init")
-    real = (direct_tracker.pose_optimization, framestep.sparse_image_align)
+    direct_names = ("cur_pyr", "R_pred", "t_pred", "pt_xyz", "pt_valid",
+                    "pt_patch", "pt_ref_uv", "pt_ref_level", "pt_ref_R",
+                    "pt_ref_t", "intr")
+    real = (direct_tracker.pose_optimization, framestep.sparse_image_align,
+            framestep.track_local_map_direct)
     direct_tracker.pose_optimization = recorder(
         "pose", optim.pose_optimization, pose_names)
     framestep.sparse_image_align = recorder(
         "align", sparse_align.sparse_image_align, align_names)
+    framestep.track_local_map_direct = recorder(
+        "direct", direct_tracker.track_local_map_direct, direct_names)
     before = (optim.pose_optimization.launches,
-              sparse_align.sparse_image_align.launches)
+              sparse_align.sparse_image_align.launches,
+              direct_tracker.direct_align.launches)
     try:
         carry = framestep.FrameCarry(*(a.clone() for a in graph.carry))
         framestep.frame_step(torch.as_tensor(img, device="cuda"), carry,
@@ -1851,16 +1879,19 @@ def record_step_calls(system, img):
                              graph.remap, tr.intr)
         torch.cuda.synchronize()
     finally:
-        direct_tracker.pose_optimization, framestep.sparse_image_align = real
+        (direct_tracker.pose_optimization, framestep.sparse_image_align,
+         framestep.track_local_map_direct) = real
     launches = (optim.pose_optimization.launches - before[0],
-                sparse_align.sparse_image_align.launches - before[1])
-    return calls["pose"], calls["align"], launches
+                sparse_align.sparse_image_align.launches - before[1],
+                direct_tracker.direct_align.launches - before[2])
+    return calls["pose"], calls["align"], calls["direct"], launches
 
 
 def gn_kernel_names(system, frames):
-    """pose_gn and sparse_align kernels per graph replay of the tracker's
-    frame step over the frames (torch.profiler's device records), from the
-    graph's carry, which is put back afterwards."""
+    """pose_gn, sparse_align and direct_align kernels per graph replay of
+    the tracker's frame step over the frames (torch.profiler's device
+    records), from the graph's carry, which is put back afterwards; and
+    the replay's device ms per frame (kernels and copies)."""
     import torch
     from ygz_tpu_torch.frontend.framestep import FrameCarry
     from ygz_tpu_torch.utils.profiling import device_events
@@ -1874,8 +1905,10 @@ def gn_kernel_names(system, frames):
                            len(frames))
     graph.load(saved)
     names = [e.name() for e in dev]
-    return (sum("pose_gn_kernel" in k for k in names) / len(frames),
-            sum("sparse_align_kernel" in k for k in names) / len(frames))
+    counts = tuple(sum(k in n for n in names) / len(frames)
+                   for k in ("pose_gn_kernel", "sparse_align_kernel",
+                             "direct_align_kernel"))
+    return counts, 1e-6 * sum(e.duration_ns() for e in dev) / len(frames)
 
 
 def time_gn(label, fn, plain, steps, n_bytes, n_ops):
@@ -1901,30 +1934,109 @@ def time_gn(label, fn, plain, steps, n_bytes, n_ops):
     return rec
 
 
+def direct_names_pts():
+    """track_local_map_direct's seven per-point arguments, in order."""
+    return ("pt_xyz", "pt_valid", "pt_patch", "pt_ref_uv", "pt_ref_level",
+            "pt_ref_R", "pt_ref_t")
+
+
+def plain_direct_passes(kw, R1, t1):
+    """The plain version of the direct tracker's two passes (no pose GN):
+    the setup at the prediction, align_all there and at (R1, t1), the
+    merge."""
+    import torch
+    from ygz_tpu_torch.frontend import direct_tracker as dt
+    from ygz_tpu_torch.ops.image import stack_and_height
+
+    stack, h0 = stack_and_height(kw["cur_pyr"], 4)
+    pts = tuple(kw[k] for k in direct_names_pts())
+    _, lvl, warped, wok = dt._warp_setup(
+        h0, stack.shape[1], kw["R_pred"], kw["t_pred"], *pts, kw["intr"], 4)
+    align_all = dt._make_align_all(stack, h0, pts[0], pts[1], warped, wok,
+                                   lvl, kw["intr"], 4)
+    uv, ok = align_all(kw["R_pred"], kw["t_pred"])
+    uv2, ok2 = align_all(R1, t1)
+    return torch.where(ok[:, None], uv, uv2), ok | ok2
+
+
+def hold_direct(label, kw):
+    """track_local_map_direct's kernel (two launches) and
+    refine_matches_core's (one, at the prediction as a known pose) against
+    their plain versions on the same card inputs: ok on >= 99% of the
+    points, uv within 1e-3 px at the search level on >= 99% of those
+    aligned in both and within 0.1 px on all (a point at the 0.03-px test
+    may stop one step earlier or later), visible equal on >= 99%, the pose
+    within 1e-4. Returns the largest uv difference at the search level."""
+    import torch
+    from ygz_tpu_torch.frontend import direct_tracker as dt
+
+    got = dt.track_local_map_direct(**kw)
+    want = dt.track_local_map_direct_torch(**kw)
+    ref = {k.replace("_pred", "_cur"): v for k, v in kw.items()}
+    r_got = dt.refine_matches_core(**ref)
+    r_want = dt.refine_matches_core_torch(**ref)
+    torch.cuda.synchronize()
+    scale = 2.0 ** want.level.float()
+    errs, oks = [], []
+    for (ug, og), (uw, ow) in (((got.uv, got.aligned),
+                                (want.uv, want.aligned)),
+                               (r_got, r_want)):
+        both = og & ow
+        d = ((ug - uw).abs().max(1).values / scale)[both].cpu().numpy()
+        errs.append(d)
+        oks.append(float((og == ow).float().mean()))
+    d = np.concatenate(errs)
+    n_al = int(want.aligned.sum())
+    err_pose = max(float((got.R - want.R).abs().max()),
+                   float((got.t - want.t).abs().max())) if n_al >= 8 else 0.0
+    vis = float((got.visible == want.visible).float().mean())
+    print(f"direct_align {label} (N={int(kw['pt_xyz'].shape[0])}): aligned "
+          f"{int(got.aligned.sum())} / {n_al} plain (agree {oks[0]:.4f}), "
+          f"refined {int(r_got[1].sum())} / {int(r_want[1].sum())} (agree "
+          f"{oks[1]:.4f}); |duv| at the level: median "
+          f"{np.median(d) if len(d) else 0:.2e}, max "
+          f"{d.max() if len(d) else 0:.2e}, over 1e-3 on "
+          f"{int((d >= 1e-3).sum())} of {len(d)}; max |dR|, |dt| "
+          f"{err_pose:.2e}; visible agree {vis:.4f}; inliers "
+          f"{int(got.n_inliers)} / {int(want.n_inliers)}")
+    ok = (min(oks) >= 0.99 and vis >= 0.99 and err_pose < 1e-4
+          and (not len(d) or ((d < 1e-3).mean() >= 0.99 and d.max() < 0.1)))
+    if not ok:
+        raise RuntimeError(f"direct_align kernel disagrees with the plain "
+                           f"version on {label}")
+    return float(d.max()) if len(d) else 0.0
+
+
 def check_gn_kernels(system, frames):
     """The frame step's two Gauss-Newton kernels (csrc/pose_gn.cu,
-    csrc/sparse_align.cu) against their plain versions on the card: at
-    seeded edge cases and at the main path's inputs (recorded from one
-    eager frame step of the tracker's 512-point cache); two launches
-    repeating bit for bit; one eager step launching 2 + 1 of them and one
-    graph replay running 2 + 1; times, bounds and us per step. Returns the
-    two kernel records."""
+    csrc/sparse_align.cu) and the direct tracker's (csrc/direct_align.cu)
+    against their plain versions on the card: at seeded edge cases and at
+    the main path's inputs (recorded from one eager frame step of the
+    tracker's 512-point cache); two launches repeating bit for bit; one
+    eager step launching 2 + 1 + 2 of them and one graph replay running
+    2 + 1 + 2; times, bounds and us per step, the replay's device time per
+    frame. Returns the three kernel records."""
     import torch
     from ygz_tpu_torch.backend import optim
-    from ygz_tpu_torch.frontend import sparse_align
+    from ygz_tpu_torch.frontend import direct_tracker, sparse_align
+    from ygz_tpu_torch.ops.image import stack_and_height
 
-    pose_calls, align_calls, launches = record_step_calls(system, frames[0])
+    pose_calls, align_calls, direct_calls, launches = record_step_calls(
+        system, frames[0])
     print(f"one eager frame step: pose_gn launches {launches[0]}, "
-          f"sparse_align launches {launches[1]}")
-    if launches != (2, 1) or len(pose_calls) != 2 or len(align_calls) != 1:
-        raise RuntimeError("a frame step did not launch pose_gn twice and "
-                           "sparse_align once")
-    per_replay = gn_kernel_names(system, frames[:4])
+          f"sparse_align launches {launches[1]}, direct_align launches "
+          f"{launches[2]}")
+    if launches != (2, 1, 2) or len(pose_calls) != 2 \
+            or len(align_calls) != 1 or len(direct_calls) != 1:
+        raise RuntimeError("a frame step did not launch pose_gn twice, "
+                           "sparse_align once and direct_align twice")
+    per_replay, replay_ms = gn_kernel_names(system, frames[:4])
     print(f"graph replay: pose_gn {per_replay[0]}, sparse_align "
-          f"{per_replay[1]} kernels per frame step")
-    if per_replay != (2, 1):
-        raise RuntimeError("a graph replay did not run 2 pose_gn and 1 "
-                           "sparse_align kernels")
+          f"{per_replay[1]}, direct_align {per_replay[2]} kernels per frame "
+          f"step; device time {replay_ms:.4f} ms per frame")
+    if per_replay != (2, 1, 2):
+        raise RuntimeError("a graph replay did not run 2 pose_gn, 1 "
+                           "sparse_align and 2 direct_align kernels")
 
     pose_err = max(hold_pose_gn(f"main path call {i}", kw)
                    for i, kw in enumerate(pose_calls))
@@ -1998,6 +2110,49 @@ def check_gn_kernels(system, frames):
         len(lv) * (N * ALIGN_SETUP_OPS + it * (
             N * (ALIGN_POINT_OPS + 16 * ALIGN_PIXEL_OPS) + GN_STEP_OPS))
         + N * (ALIGN_POINT_OPS + 32))
+    direct = direct_calls[0]
+    direct_err = hold_direct("main path", direct)
+    N = int(direct["pt_xyz"].shape[0])
+    rng = np.random.default_rng(15)
+    nan_patch = dict(direct, pt_patch=direct["pt_patch"].clone())
+    nan_patch["pt_patch"][torch.as_tensor(
+        rng.choice(N, N // 8, replace=False), device="cuda")] = float("nan")
+    behind = dict(direct, pt_xyz=direct["pt_xyz"].clone())
+    behind["pt_xyz"][-40:] = -behind["pt_xyz"][-40:]
+    for label, kw in (
+            ("NaN patches", nan_patch),
+            ("no valid point", dict(direct, pt_valid=torch.zeros_like(
+                direct["pt_valid"]))),
+            ("40 behind the camera", behind)):
+        direct_err = max(direct_err, hold_direct(label, kw))
+    c = [direct_tracker.track_local_map_direct(**direct) for _ in range(2)]
+    r = [direct_tracker.refine_matches_core(
+        **{k.replace("_pred", "_cur"): v for k, v in direct.items()})
+        for _ in range(2)]
+    torch.cuda.synchronize()
+    same = (all(torch.equal(x, y) for x, y in zip(*c))
+            and all(torch.equal(x, y) for x, y in zip(*r)))
+    print(f"repeat bit for bit: direct_align {same}")
+    if not same:
+        raise RuntimeError("the direct_align kernel did not repeat")
+    # the frame's two passes: the setup at the prediction, then pass 2 at
+    # the first pose GN's result (the second pose call's start)
+    R1, t1 = pose_calls[1]["R0"], pose_calls[1]["t0"]
+    stack, h0 = stack_and_height(direct["cur_pyr"], 4)
+    pts = tuple(direct[k] for k in direct_names_pts())
+
+    def kernel_passes():
+        uv1, ok1, setup = direct_tracker.direct_align(
+            stack, h0, pts, direct["intr"], direct["R_pred"],
+            direct["t_pred"])
+        direct_tracker.direct_align(stack, h0, pts, direct["intr"], R1, t1,
+                                    setup=setup, prev=(uv1, ok1))
+
+    direct_rec = time_gn(
+        f"direct_align at the main path's N={N}, two passes",
+        kernel_passes, lambda: plain_direct_passes(direct, R1, t1), 2 * 10,
+        *direct_align_work(N))
+    direct_rec["replay_device_ms_per_frame"] = replay_ms
     common = {"route": "cuda", "library_ms": None}
     return ({"name": "pose_gn", **common,
              "source": "ygz_tpu_torch/csrc/pose_gn.cu",
@@ -2010,7 +2165,14 @@ def check_gn_kernels(system, frames):
              "replaces": "ygz_tpu/frontend/sparse_align.py:44",
              "max_abs_err": align_err,
              "launches_per_eager_frame_step": launches[1],
-             "kernels_per_graph_replay": per_replay[1], **align_rec})
+             "kernels_per_graph_replay": per_replay[1], **align_rec},
+            {"name": "direct_align", **common,
+             "source": "ygz_tpu_torch/csrc/direct_align.cu",
+             "replaces": "ygz_tpu/ops/align.py:179 align2d_stacked with "
+                         "ygz_tpu/frontend/direct_tracker.py:49 _warp_setup",
+             "max_abs_err": direct_err,
+             "launches_per_eager_frame_step": launches[2],
+             "kernels_per_graph_replay": per_replay[2], **direct_rec})
 
 
 def run_counted(fast, label, fn):
@@ -2021,9 +2183,10 @@ def run_counted(fast, label, fn):
     import torch
 
     from ygz_tpu_torch.backend import optim
-    from ygz_tpu_torch.frontend import sparse_align
+    from ygz_tpu_torch.frontend import direct_tracker, sparse_align
 
-    gn = (optim.pose_optimization, sparse_align.sparse_image_align)
+    gn = (optim.pose_optimization, sparse_align.sparse_image_align,
+          direct_tracker.direct_align)
     fast.fast_score_map.launches = 0
     fast.fast_corner_maps.launches = 0
     for wrapper in gn:
@@ -2034,22 +2197,24 @@ def run_counted(fast, label, fn):
     fused = fast.fast_corner_maps.launches
     single = fast.fast_score_map.launches
     GN_LAUNCHES[label] = {"pose_gn": gn[0].launches,
-                          "sparse_align": gn[1].launches}
+                          "sparse_align": gn[1].launches,
+                          "direct_align": gn[2].launches}
     by = collections.Counter(extractions)
     print(f"{label}: {len(extractions)} extractions ({dict(by)}), "
           f"fast_corners launches {fused}, single-threshold fast_score "
-          f"launches {single}; Gauss-Newton kernel launches outside graph "
-          f"captures and replays {GN_LAUNCHES[label]}")
+          f"launches {single}; Gauss-Newton and direct_align kernel "
+          f"launches outside graph captures and replays "
+          f"{GN_LAUNCHES[label]}")
     if not extractions or fused != len(extractions) or single:
         raise RuntimeError(f"{label} did not make exactly one fast_corners "
                            f"launch per extraction")
     return out, fused, single
 
 
-# run_counted's Gauss-Newton kernel launches per path (wrapper counts:
-# eager calls and the warm-up steps of each frame-step graph; a call inside
-# a capture launches nothing and a graph replay runs its kernels with no
-# wrapper call, so neither counts)
+# run_counted's Gauss-Newton and direct_align kernel launches per path
+# (wrapper counts: eager calls and the warm-up steps of each frame-step
+# graph; a call inside a capture launches nothing and a graph replay runs
+# its kernels with no wrapper call, so neither counts)
 GN_LAUNCHES = {}
 
 
@@ -2886,13 +3051,16 @@ def main() -> int:
     (system, states, ladder, secs), fused, single = run_counted(
         fast, "main path", lambda: run_main_path(frames[:N_FRAMES], "cuda"))
     main_replays = system.tracker._graph.replays
-    main_per_replay = gn_kernel_names(system, frames[N_FRAMES:])
+    main_per_replay, main_replay_ms = gn_kernel_names(system,
+                                                      frames[N_FRAMES:])
     print(f"main path: {main_replays} frame-step graph replays; pose_gn "
-          f"{main_per_replay[0]}, sparse_align {main_per_replay[1]} kernels "
-          f"per replay of its graph")
-    if main_per_replay != (2, 1):
+          f"{main_per_replay[0]}, sparse_align {main_per_replay[1]}, "
+          f"direct_align {main_per_replay[2]} kernels per replay of its "
+          f"graph, {main_replay_ms:.4f} device ms per replay")
+    if main_per_replay != (2, 1, 2):
         raise RuntimeError("a replay of the main path's graph did not run 2 "
-                           "pose_gn and 1 sparse_align kernels")
+                           "pose_gn, 1 sparse_align and 2 direct_align "
+                           "kernels")
     corners_rec["launches"], score_rec["launches"] = fused, single
     print(f"main path: {N_FRAMES} frames in {secs:.2f} s "
           f"({1e3 * secs / N_FRAMES:.2f} ms/frame mean)")
@@ -2976,8 +3144,8 @@ def main() -> int:
         rec.update({"launches_" + re.sub(r"\W+", "_", label).strip("_"):
                     n[rec["name"]] for label, n in GN_LAUNCHES.items()})
     if not all(rec["launches"] > 0 for rec in gn_recs):
-        raise RuntimeError(f"the main path launched no Gauss-Newton kernel: "
-                           f"{GN_LAUNCHES['main path']}")
+        raise RuntimeError(f"the main path launched no Gauss-Newton or "
+                           f"direct_align kernel: {GN_LAUNCHES['main path']}")
     print(json.dumps({"kernels": [score_rec, corners_rec, *gn_recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -808,3 +808,239 @@ def test_frame_step_launches_each_gn_kernel(cuda):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("pose_gn_kernel" in k for k in names) == 2
     assert sum("sparse_align_kernel" in k for k in names) == 1
+
+
+# ---- the direct tracker's per-point work, one launch per pass
+# (csrc/direct_align.cu), against its plain version on the same card
+# inputs: tests/torch_direct_cases.py's seeded cases (the CPU parity tests
+# against JAX use the same ones) and one eager frame step's own inputs
+
+def _direct_inputs(case, dev):
+    from torch_direct_cases import (CASES, R_CUR, R_PRED, T_CUR, T_PRED,
+                                    direct_case, scene_frames)
+
+    _, stack, _ = scene_frames()
+    t = functools.partial(torch.as_tensor, device=dev)
+    pts = tuple(t(a) for a in direct_case(**CASES[case]))
+    return (t(stack), (t(R_PRED), t(T_PRED)), (t(R_CUR), t(T_CUR)), pts)
+
+
+@functools.lru_cache(maxsize=None)
+def _main_path_direct():
+    """track_local_map_direct's arguments in one eager frame step of a
+    tracker on the card (its cache of max_track rows, as the graph's
+    replay passes them), with the tracker itself."""
+    from ygz_tpu_torch.frontend import framestep
+    from ygz_tpu_torch.frontend.framestep import FrameCarry
+    from ygz_tpu_torch.system import Sensor, System
+
+    cam, frames = _sweep_frames(14)
+    system = System(cam, Sensor.MONOCULAR)
+    for i, img in enumerate(frames[:12]):
+        system.track_monocular(img, i * 0.05)
+    tr = system.tracker
+    graph = tr._graph
+    assert tr.state.name == "OK" and graph is not None
+    calls = []
+    real = framestep.track_local_map_direct
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    framestep.track_local_map_direct = record
+    try:
+        framestep.frame_step(
+            torch.as_tensor(frames[12], device="cuda"),
+            FrameCarry(*(a.clone() for a in graph.carry)), tr._snap[1],
+            graph.no_pred, None, tr.intr)
+    finally:
+        framestep.track_local_map_direct = real
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+    return system, frames, calls[0]
+
+
+def _direct_case_names():
+    from torch_direct_cases import CASES
+
+    return list(CASES) + ["main_path"]
+
+
+def _hold_direct(got, want, level, both_ok):
+    """uv within 1e-3 px at the point's search level on >= 99% of the
+    points aligned in both (median ~1e-5 on the CPU rehearsal), and every
+    one within 0.1 px: a point whose last step sits at the 0.03-px test
+    stops one step earlier or later (float32 sums in another order)."""
+    d = ((got - want).abs().max(1).values
+         / 2.0 ** level.float())[both_ok].cpu().numpy()
+    if len(d):
+        assert (d < 1e-3).mean() >= 0.99
+        assert (d < 0.1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _direct_case_names())
+def test_direct_align_kernel_matches_plain(cuda, case):
+    """track_local_map_direct (2 launches) and refine_matches_core (1) on
+    the card against their plain versions on the same card tensors: ok on
+    >= 99% of the points (sums in another order near the eps-0.03 test),
+    uv as _hold_direct says, visible and level equal on visible points."""
+    from ygz_tpu_torch.frontend import direct_tracker as dt
+    from ygz_tpu_torch.ops.image import infer_height
+
+    if case == "main_path":
+        _, _, (args, kw) = _main_path_direct()
+        stack, (R, t), pts, intr = args[0], args[1:3], args[3:10], args[10]
+        pose_ref = (R, t)
+    else:
+        stack, (R, t), pose_ref, pts = _direct_inputs(case, cuda)
+        from torch_direct_cases import INTR as intr
+        kw = {}
+    before = dt.direct_align.launches
+    got = dt.track_local_map_direct(stack, R, t, *pts, intr, **kw)
+    assert dt.direct_align.launches == before + 2
+    want = dt.track_local_map_direct_torch(stack, R, t, *pts, intr, **kw)
+    torch.cuda.synchronize()
+    n = pts[0].shape[0]
+    a_g, a_w = got.aligned.cpu().numpy(), want.aligned.cpu().numpy()
+    assert (a_g == a_w).mean() >= 0.99
+    vis = want.visible
+    assert torch.equal(got.visible, vis)
+    if vis.any():
+        assert (got.level == want.level)[vis].float().mean() >= 0.99
+    _hold_direct(got.uv, want.uv, want.level, got.aligned & want.aligned)
+    assert (got.uv[~got.aligned] == 0).all()
+    if a_w.sum() >= 8:
+        # the GN kernels over positions that agree to ~1e-4 px
+        assert (got.R - want.R).abs().max() < 1e-4
+        assert (got.t - want.t).abs().max() < 1e-4
+        assert abs(int(got.n_inliers) - int(want.n_inliers)) <= max(2,
+                                                                    n // 100)
+    else:
+        assert int(got.n_inliers) == int(want.n_inliers) <= 1
+
+    before = dt.direct_align.launches
+    Rr, tr_ = pose_ref
+    uv, ok = dt.refine_matches_core(stack, Rr, tr_, *pts, intr, **kw)
+    assert dt.direct_align.launches == before + 1
+    uv_w, ok_w = dt.refine_matches_core_torch(stack, Rr, tr_, *pts, intr,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert (ok == ok_w).float().mean() >= 0.99
+    h0 = infer_height(stack.shape[0], stack.shape[1], 4)
+    lvl = dt._warp_setup(h0, stack.shape[1], Rr, tr_, *pts, intr, 4)[1]
+    _hold_direct(uv, uv_w, lvl, ok & ok_w)
+
+
+@pytest.mark.cuda
+def test_direct_align_repeats_bit_for_bit(cuda):
+    """No atomics, one summation order: two launches on the same inputs
+    give the same bits (what a graph replay of the frame step needs)."""
+    from torch_direct_cases import INTR
+    from ygz_tpu_torch.frontend import direct_tracker as dt
+
+    stack, (R, t), pose_ref, pts = _direct_inputs("main", cuda)
+    a = dt.track_local_map_direct(stack, R, t, *pts, INTR)
+    b = dt.track_local_map_direct(stack, R, t, *pts, INTR)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = dt.refine_matches_core(stack, *pose_ref, *pts, INTR)
+    b = dt.refine_matches_core(stack, *pose_ref, *pts, INTR)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_direct_align_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    from torch_direct_cases import INTR
+    from ygz_tpu_torch.frontend.direct_tracker import direct_align
+
+    stack, (R, t), _, pts = _direct_inputs("one_point", cuda)
+    h0 = 480
+
+    def with_pt(k, x):
+        return pts[:k] + (x,) + pts[k + 1:]
+
+    with pytest.raises(TypeError):                 # float64 points
+        direct_align(stack, h0, with_pt(0, pts[0].double()), INTR, R, t)
+    with pytest.raises(TypeError):                 # an int64 level
+        direct_align(stack, h0, with_pt(4, pts[4].long()), INTR, R, t)
+    with pytest.raises(ValueError):                # a 10x10 stored patch
+        direct_align(stack, h0, with_pt(2, pts[2][:, :10, :10]), INTR, R, t)
+    with pytest.raises(ValueError):                # rows of unequal length
+        direct_align(stack, h0, with_pt(3, torch.cat([pts[3], pts[3]])),
+                     INTR, R, t)
+    with pytest.raises(TypeError):                 # a float64 pose
+        direct_align(stack, h0, pts, INTR, R.double(), t)
+    with pytest.raises(TypeError):                 # a float64 pyramid
+        direct_align(stack.double(), h0, pts, INTR, R, t)
+    with pytest.raises(ValueError):                # below the 9x9 gather
+        direct_align(torch.zeros(8, 8, device=cuda), 4, pts, INTR, R, t)
+    with pytest.raises(ValueError):                # CPU points
+        direct_align(stack, h0, tuple(x.cpu() for x in pts), INTR, R, t)
+    prev = (torch.zeros(1, 2, device=cuda),
+            torch.zeros(1, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):                # prev without a setup
+        direct_align(stack, h0, pts, INTR, R, t, prev=prev)
+    _, _, setup = direct_align(stack, h0, pts, INTR, R, t)
+    with pytest.raises(ValueError):                # prev of another length
+        direct_align(stack, h0, pts, INTR, R, t, setup=setup,
+                     prev=(torch.zeros(2, 2, device=cuda), prev[1]))
+
+
+@pytest.mark.cuda
+def test_frame_step_launches_the_direct_align_kernel_twice(cuda):
+    """One eager frame step launches direct_align twice (its two passes);
+    one graph replay runs 2 direct_align and 2 pose_gn kernels
+    (torch.profiler's kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+    from ygz_tpu_torch.frontend import direct_tracker as dt
+    from ygz_tpu_torch.frontend.framestep import FrameCarry, frame_step
+
+    system, frames, _ = _main_path_direct()
+    tr = system.tracker
+    graph = tr._graph
+    cache = tr._snap[1]
+    before = dt.direct_align.launches
+    frame_step(torch.as_tensor(frames[12], device=cuda),
+               FrameCarry(*(a.clone() for a in graph.carry)), cache,
+               graph.no_pred, None, tr.intr)
+    assert dt.direct_align.launches - before == 2
+    saved = FrameCarry(*(a.clone() for a in graph.carry))
+    graph.load(graph.carry, cache, graph.no_pred)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.step(torch.as_tensor(frames[13]))
+        torch.cuda.synchronize()
+    graph.load(saved)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("direct_align_kernel" in k for k in names) == 2
+    assert sum("pose_gn_kernel" in k for k in names) == 2
+
+
+@pytest.mark.cuda
+def test_refine_matches_on_the_worker_stream_launches_once(cuda):
+    """The mapping worker's triangulation refines on its own CUDA stream:
+    one launch there, the same bits as on the default stream."""
+    import threading
+
+    from torch_direct_cases import INTR
+    from ygz_tpu_torch.frontend import direct_tracker as dt
+
+    stack, _, pose_ref, pts = _direct_inputs("ragged_1500", cuda)
+    want = dt.refine_matches_core(stack, *pose_ref, *pts, INTR)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream(cuda)
+    got = {}
+
+    def worker():
+        with torch.cuda.stream(stream):
+            before = dt.direct_align.launches
+            got["out"] = dt.refine_matches_core(stack, *pose_ref, *pts, INTR)
+            got["launches"] = dt.direct_align.launches - before
+        stream.synchronize()
+
+    th = threading.Thread(target=worker)
+    th.start()
+    th.join()
+    assert got["launches"] == 1
+    assert all(torch.equal(x, y) for x, y in zip(got["out"], want))

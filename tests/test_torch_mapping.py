@@ -138,7 +138,9 @@ def test_triangulate_multi_matches_jax(two_kfs):
                "pyr": t_(stacks[1])}
     it, gt, Xt = tmap._triangulate_multi(
         t_(a["desc"]), t_(a["uv"]), t_(a["level"]), t_(unA), t_(a["angle"]),
-        t_(RA), t_(tA), t_(stacks[0]), [partner, None], t_(K), 5.0, LEVELS)
+        t_(RA), t_(tA), t_(stacks[0]), [partner, None], t_(K),
+        tuple(float(K[i, j]) for i, j in ((0, 0), (1, 1), (0, 2), (1, 2))),
+        5.0, LEVELS)
     # matching gates and the KLT convergence test may flip a borderline
     # candidate; the empty slot accepts nothing in either package
     assert agree(gt[0], gj[0]) >= 0.99

@@ -99,15 +99,15 @@ def _epipolar_match_core(descA, uvA, levelA, validA,
 
 
 def _triangulate_multi(descA, uvA, lvlA, validA, angA, RA, tA, pyrA,
-                       partners, K, med_depth, n_levels: int):
+                       partners, K, intr, med_depth, n_levels: int):
     """Multi-partner triangulation: per partner, epipolar match + DLT +
     direct subpixel refinement of the B side (KLT of A's patches in B's
     pyramid) + re-triangulation + gates. `partners` is a list of dicts
-    (desc, uv, level, valid, angle, R, t, pyr) or None for an empty slot.
-    Returns (idx [P, NA], good [P, NA], X [P, NA, 3])."""
+    (desc, uv, level, valid, angle, R, t, pyr) or None for an empty slot;
+    `intr` is K's (fx, fy, cx, cy) as numbers. Returns (idx [P, NA],
+    good [P, NA], X [P, NA, 3])."""
     NA = descA.shape[0]
     dev = uvA.device
-    intr = (K[0, 0], K[1, 1], K[0, 2], K[1, 2])
     # the A-side uv DEFINES each candidate; its patch is captured once
     patches = capture_ref_patches_core(pyrA, uvA, lvlA, n_levels)
     RA_n = RA.expand(NA, 3, 3)
@@ -223,7 +223,7 @@ class LocalMapper:
             fA["desc"], fA["uv"], fA["level"], self._t(unboundA),
             fA["angle"], self._t(smap.kf_R[kf_new]),
             self._t(smap.kf_t[kf_new]), pyramid_new, slots, self.K_dev,
-            float(med_depth), self.n_levels)
+            self.intr, float(med_depth), self.n_levels)
         idx = idx.cpu().numpy()
         good = good.cpu().numpy()
         X = X.cpu().numpy()
