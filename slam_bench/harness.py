@@ -4,22 +4,26 @@ reads the traced slice and judges the timed path's output.
 
 Everything of one configuration, mix, cell or metric is a file of its own:
 
-- ``configs/<config>.json``: the deployment (source, sensor, what was
-  assumed), naming its settings file ``configs/<config>.yaml``
-  in the reference's cv::FileStorage format, which the port reads through
-  its own ``ygz_tpu_torch/io/config.py``;
+- ``configs/<config>.json``: the deployment (source, ``sensor``, for a
+  mono-inertial rig ``imu_hz``, what was assumed), naming its settings file
+  ``configs/<config>.yaml`` in the reference's cv::FileStorage format,
+  which the port reads through its own ``ygz_tpu_torch/io/config.py``;
 - ``traffic/<mix>.json``: the rate frames are due at, whether the
   mapping worker runs, and the lap the generator renders (its texture from
   the mix's ``texture_seed`` where it names one, else from the run's seed);
-- ``workloads/<cell>.json``: the cell's warm-up and traced frames and the
-  limits of its correctness numbers;
+- ``workloads/<cell>.json``: the cell's warm-up and traced frames (and, of
+  a mono-inertial cell, ``max_vi_init_frames``) and the limits of its
+  correctness numbers;
 - ``metrics/<metric>.py`` (else ``metrics/<metric less its last dotted
   part>.py``): a ``read(ctx)`` returning the metric or None.
 
-Only the window is timed: set-up renders one lap on the device, builds the
-System, initializes it and tracks the warm frames, and drains the mapping
-worker. The window feeds ``System.track_monocular`` one frame at a time,
-each when it is due.
+Only the window is timed: set-up renders one lap on the device (with the
+right views or the depth maps the sensor needs, or the lap's IMU), builds
+the System for the configuration's sensor, initializes it (a mono-inertial
+System until VINS initialization has run) and tracks the warm frames, and
+drains the mapping worker. The window feeds the sensor's entry
+(``track_monocular``, ``track_stereo``, ``track_rgbd`` or
+``track_mono_vi``) one frame at a time, each when it is due.
 """
 from __future__ import annotations
 
@@ -38,6 +42,10 @@ from . import reference, scene
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
+SENSORS = ("MONOCULAR", "STEREO", "RGBD", "MONO_VI")
+# the 1.25 by which the metric_scale control mis-states a metric sensor's
+# scale
+CONTROL_SCALE = 1.25
 
 
 # ------------------------------------------------------------------ lookups
@@ -55,9 +63,7 @@ def load_cell(name: str) -> SimpleNamespace:
                          f"{sorted(cells)}")
     cell = cells[name]
     conf = {c["name"]: c for c in spec["configs"]}[cell["config"]]
-    config = json.loads((ROOT / conf["file"]).read_text())
-    config["settings_path"] = str((ROOT / conf["file"]).parent
-                                  / config["settings"])
+    config = read_config(ROOT / conf["file"])
     e2e = [m for m in spec["end_to_end"]
            if name in m.get("workloads", [name])]
     e2e_names = {m["name"] for m in e2e}
@@ -71,6 +77,23 @@ def load_cell(name: str) -> SimpleNamespace:
         workload=json.loads((BENCH / "workloads" / f"{name}.json")
                             .read_text()),
         end_to_end=e2e, per_layer=per_layer)
+
+
+def read_config(path) -> dict:
+    """A configuration's JSON with `settings_path`, the path of the
+    settings file it names, beside it."""
+    path = Path(path)
+    config = json.loads(path.read_text())
+    config["settings_path"] = str(path.parent / config["settings"])
+    return config
+
+
+def sensor_of(config: dict) -> str:
+    """The sensor a configuration names (MONOCULAR where it names none)."""
+    sensor = config.get("sensor", "MONOCULAR")
+    if sensor not in SENSORS:
+        raise ValueError(f"sensor {sensor!r}: one of {SENSORS}")
+    return sensor
 
 
 def metric_reader(name: str):
@@ -99,14 +122,29 @@ def settings_numbers(path) -> dict:
     return out
 
 
+def settings_matrix(path, key):
+    """The numbers of the settings file's matrix `key` (an opencv-matrix's
+    `data` or a flow sequence) as a float64 array, or None where the file
+    has no such key; read here so the generator takes nothing from the
+    port."""
+    text = re.sub(r"#.*", "", Path(path).read_text())
+    m = re.search(rf"^{re.escape(key)}:[^\[]*?\[([^\]]*)\]", text,
+                  re.M | re.S)
+    if m is None:
+        return None
+    return np.array([float(v) for v in m.group(1).split(",") if v.strip()])
+
+
 def camera_dict(nums: dict, scale: float = 1.0) -> dict:
     """The renderer's camera from the settings (scaled for CPU rehearsals:
-    intrinsics and size together, distortion unchanged)."""
+    intrinsics, size and bf together, so the baseline keeps its metres;
+    distortion unchanged)."""
     return {"fx": nums["Camera.fx"] * scale, "fy": nums["Camera.fy"] * scale,
             "cx": (nums["Camera.cx"] + 0.5) * scale - 0.5,
             "cy": (nums["Camera.cy"] + 0.5) * scale - 0.5,
             "width": int(round(nums["Camera.width"] * scale)),
             "height": int(round(nums["Camera.height"] * scale)),
+            "bf": nums.get("Camera.bf", 0.0) * scale,
             "dist": [nums.get(f"Camera.{k}", 0.0)
                      for k in ("k1", "k2", "p1", "p2", "k3")]}
 
@@ -139,6 +177,8 @@ class Run:
     fields) are for CPU rehearsals, and `control` for the correctness
     controls (``readings.py``); the benchmark's own runs leave them."""
 
+    CONTROLS = (None, "pinhole", "tf32", "metric_scale")
+
     def __init__(self, cell, seed, device="cuda", scale=1.0, lap_frames=None,
                  overrides=None, control=None):
         self.cell = cell
@@ -147,7 +187,14 @@ class Run:
         self.scale = scale
         self.lap_frames = lap_frames
         self.overrides = overrides or {}
+        if control not in self.CONTROLS:
+            raise ValueError(f"unknown control {control!r}")
         self.control = control
+        self.sensor = sensor_of(cell.config)
+        if control == "metric_scale" and self.sensor not in ("STEREO",
+                                                              "RGBD"):
+            raise ValueError("the metric_scale control mis-states a stereo "
+                             "baseline or a depth map")
         self.cuda = str(device).startswith("cuda")
         self.mix = cell.traffic
         self.records = []        # (global id, state, T_cw) of the window
@@ -155,6 +202,12 @@ class Run:
 
     # ............................................................ set-up
     def setup(self):
+        self.prepare()
+        self.initialize()
+
+    def prepare(self):
+        """Render the lap and what the sensor needs besides, and build the
+        System for the configuration's sensor."""
         import torch
 
         from ygz_tpu_torch.io.config import load_settings
@@ -163,6 +216,11 @@ class Run:
         cfgf = self.cell.config
         nums = settings_numbers(cfgf["settings_path"])
         fps = nums["Camera.fps"]
+        camd = camera_dict(nums, self.scale)
+        if self.sensor == "STEREO" and any(camd["dist"]):
+            raise ValueError("a stereo configuration is a rectified pair: "
+                             f"its settings give the distortion "
+                             f"{camd['dist']}")
         lapd = self.mix["lap"]
         self.lap = scene.Lap(lapd["seconds"], lapd["terms"],
                              scene.lap_phase(self.seed, lapd["seconds"]))
@@ -170,9 +228,28 @@ class Run:
         # sequence is one; the run's seed then sets only where the lap starts
         tex_seed = lapd.get("texture_seed", self.seed)
         t0 = time.perf_counter()
-        frames = scene.render_lap(self.lap, camera_dict(nums, self.scale),
-                                  fps, tex_seed, self.device,
+        frames = scene.render_lap(self.lap, camd, fps, tex_seed, self.device,
                                   lapd["texture_px"], self.lap_frames)
+        # the second input of each frame, indexed as the frames are
+        self.side = None
+        if self.sensor == "STEREO":
+            self.side = scene.render_lap_right(
+                self.lap, camd, fps, tex_seed, self.device,
+                lapd["texture_px"], self.lap_frames)
+        elif self.sensor == "RGBD":
+            self.side = scene.render_lap_depth(self.lap, camd, fps,
+                                               self.device, self.lap_frames)
+            if self.control == "metric_scale":
+                self.side *= CONTROL_SCALE
+        elif self.sensor == "MONO_VI":
+            self.imu_hz = float(cfgf.get("imu_hz", 200.0))
+            if abs(round(self.lap.lap_s * self.imu_hz)
+                   - self.lap.lap_s * self.imu_hz) > 1e-9:
+                raise ValueError("the lap must hold a whole number of IMU "
+                                 "samples")
+            tbc = settings_matrix(cfgf["settings_path"], "Camera.Tbc")
+            tbc = np.eye(4) if tbc is None else tbc.reshape(4, 4)
+            self.imu = scene.lap_imu(self.lap, self.imu_hz, tbc)
         self.stream = Stream(frames, fps, periodic=self.lap_frames is None)
         if self.cuda:
             torch.cuda.synchronize()
@@ -181,12 +258,13 @@ class Run:
 
         s = load_settings(cfgf["settings_path"])
         cam = s.camera
-        if self.control not in (None, "pinhole", "tf32"):
-            raise ValueError(f"unknown control {self.control!r}")
         if self.control == "pinhole":
             # the configuration's distortion dropped: frames tracked as if
             # the lens were a pinhole
             cam = cam._replace(dist=torch.zeros_like(cam.dist))
+        if self.control == "metric_scale" and self.sensor == "STEREO":
+            # the rig's baseline mis-stated: every depth 1.25 times too far
+            cam = cam._replace(bf=cam.bf * CONTROL_SCALE)
         # TF32 matmuls and convolutions only in the TF32 control (the port
         # pins both off)
         torch.backends.cuda.matmul.allow_tf32 = self.control == "tf32"
@@ -196,19 +274,37 @@ class Run:
 
             c = camera_dict(nums, self.scale)
             cam = Camera.make(c["fx"], c["fy"], c["cx"], c["cy"],
-                              c["width"], c["height"], cam.dist)
+                              c["width"], c["height"], cam.dist,
+                              bf=cam.bf * self.scale)
         cfg = s.tracker
         cfg.async_mapping = bool(self.mix["async_mapping"])
         cfg.track_batch = 1
         for k, v in self.overrides.items():
             setattr(cfg, k, v)
         self.tracker_cfg = cfg
+        vi = {}
+        if self.sensor == "MONO_VI":
+            from ygz_tpu_torch.frontend.vi_tracker import MonoViTracker
+
+            # the port's NavState window is a constant; a settings file
+            # asking for another would be run as it is not
+            if s.vio.local_window_size != MonoViTracker.W_CAP:
+                raise ValueError(
+                    f"LocalMapping.LocalWindowSize "
+                    f"{s.vio.local_window_size}: the port's window is "
+                    f"{MonoViTracker.W_CAP}")
+            if not np.allclose(s.vio.Tbc, tbc, atol=1e-6):
+                raise ValueError("Camera.Tbc read otherwise by the port")
+            vi = {"Tbc": s.vio.Tbc, "vins_init_time": s.vio.vins_init_time}
+        self._track = getattr(self, f"_track_{self.sensor.lower()}")
         t0 = time.perf_counter()
-        self.system = System(cam, Sensor.MONOCULAR, config=cfg,
-                             device=self.device)
+        self.system = System(cam, Sensor[self.sensor], config=cfg,
+                             device=self.device, **vi)
         self.notes["system_s"] = time.perf_counter() - t0
 
-        # initialize frame by frame, then the warm frames
+    def initialize(self):
+        """Initialize frame by frame (a mono-inertial System until VINS
+        initialization has run), then the warm frames and the drain."""
         t0 = time.perf_counter()
         wl = self.cell.workload
         n = 0
@@ -219,6 +315,15 @@ class Run:
             if n >= wl["max_init_frames"]:
                 raise RuntimeError(f"not initialized after {n} frames")
         self.notes["init_frames"] = n
+        if self.sensor == "MONO_VI":
+            n = 0
+            while self.system.tracker.vins_scale is None:
+                if n >= wl["max_vi_init_frames"]:
+                    raise RuntimeError(f"VINS not initialized after {n} "
+                                       f"frames")
+                self._feed(1)
+                n += 1
+            self.notes["vi_init_frames"] = n
         self.notes["init_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self._feed(wl["warm_frames"])
@@ -234,13 +339,36 @@ class Run:
 
     # ............................................................ feeding
     def _feed(self, n):
-        """n frames, one track_monocular call each: [(id, state, T_cw)]."""
+        """n frames, one call of the sensor's entry each: [(id, state,
+        T_cw)]."""
         frames, ts, ids = self.stream.take(n)
         out = []
         for k in range(n):
-            r = self.system.track_monocular(frames[k], ts[k])
+            r = self._track(ids[k], frames[k], ts[k])
             out.append((ids[k], r[0], r[1]))
         return out
+
+    def _track_monocular(self, j, img, ts):
+        return self.system.track_monocular(img, ts)
+
+    def _track_stereo(self, j, img, ts):
+        return self.system.track_stereo(img, self.side[j % len(self.side)],
+                                        ts)
+
+    def _track_rgbd(self, j, img, ts):
+        return self.system.track_rgbd(img, self.side[j % len(self.side)], ts)
+
+    def _track_mono_vi(self, j, img, ts):
+        return self.system.track_mono_vi(img, self.frame_imu(j), ts)
+
+    def frame_imu(self, j):
+        """Frame j's IMU samples [(t, gyro, acc)]: those of the lap's with
+        a time in ((j - 1) / fps, j / fps], across the lap's wrap."""
+        gyro, acc = self.imu
+        n = len(gyro)
+        lo, hi = scene.frame_imu_span(j, self.stream.fps, self.imu_hz)
+        return [(g / self.imu_hz, gyro[(g - 1) % n], acc[(g - 1) % n])
+                for g in range(lo, hi)]
 
     # ............................................................ window
     def window(self, seconds):
@@ -297,15 +425,17 @@ class Run:
     # ............................................................ judge
     def numbers(self):
         """The correctness numbers of the window's returned states and
-        poses and of the map."""
+        poses and of the map: a monocular run's after a 7-DoF fit, a metric
+        sensor's with the scale fixed at 1."""
         fps = self.stream.fps
         ids = np.array([r[0] for r in self.records])
         ok = np.array([r[1] == "OK" for r in self.records])
         T = np.stack([np.asarray(r[2], np.float64) for r in self.records])
         true_c = self.lap.centre(ids / fps)
         out = {"lost_pct": reference.lost_pct(ok)}
+        with_scale = self.sensor == "MONOCULAR"
         pose = reference.pose_numbers(ids, ok, T[:, :3, :3], T[:, :3, 3],
-                                      true_c)
+                                      true_c, with_scale=with_scale)
         if pose is not None:
             out.update(pose)
         smap = self.system.map
@@ -313,8 +443,8 @@ class Run:
         kf_c = reference.centres(smap.kf_R[kv], smap.kf_t[kv])
         kf_true = self.lap.centre(smap.kf_ts[kv])
         pts = smap.pt_xyz[: smap.n_pt][smap.pt_valid[: smap.n_pt]]
-        out["map_err_med_pct"] = reference.map_err_med_pct(kf_c, kf_true,
-                                                           pts)
+        out["map_err_med_pct"] = reference.map_err_med_pct(
+            kf_c, kf_true, pts, with_scale=with_scale)
         return out
 
     def close(self):
@@ -354,16 +484,17 @@ def run_cell(cell, seed, seconds, trace=False, device="cuda", t_start=None,
     correct, rows = reference.judge(numbers, cell.workload["limits"])
     failed = sum(r[1] != "OK" for r in run.records)
 
+    # the tracker's StageTimer spans over the window: (seconds, count)
+    run.window_stages = {k: (after[0].get(k, 0.0) - before[0].get(k, 0.0),
+                             after[1].get(k, 0) - before[1].get(k, 0))
+                         for k in after[0]}
     metrics = {}
     if trace:
-        stages = {k: (after[0].get(k, 0.0) - before[0].get(k, 0.0),
-                      after[1].get(k, 0) - before[1].get(k, 0))
-                  for k in after[0]}
         ctx = SimpleNamespace(frames=frames_window, window_s=run.window_s,
-                              stages=stages, trace=tr,
+                              stages=run.window_stages, trace=tr,
                               latencies_ms=run.latencies_ms,
                               tracker_cfg=run.tracker_cfg,
-                              camera=run.system.cam)
+                              camera=run.system.cam, sensor=run.sensor)
         for m in cell.per_layer:
             v = metric_reader(m["name"])(ctx)
             if v is not None:

@@ -2,14 +2,16 @@
 numbers the limits hold, for sound runs of the port or for a control.
 
     python3 -m slam_bench.readings --workload <cell> --seeds 1,2,3 \\
-        --seconds <s> [--control pinhole|tf32]
+        --seconds <s> [--control pinhole|tf32|metric_scale]
 
 One JSON line per seed: seed, control, correct, the numbers, failed and
 attempted frames, the end-to-end readings and the run's notes. The
 benchmark's own runs never run a control. Controls: ``tf32`` switches the
 port's TF32 matmuls and convolutions on (the precision below the float32
 it pins); ``pinhole`` drops the configuration's lens distortion, a
-guarantee the deployment states.
+guarantee the deployment states; ``metric_scale`` gives a stereo System
+its baseline, or an RGB-D System its depth, 1.25 times too large (the
+metric scale such a rig guarantees).
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ def main(argv=None):
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, required=True)
-    ap.add_argument("--control", choices=("pinhole", "tf32"), default=None)
+    ap.add_argument("--control", default=None,
+                    choices=("pinhole", "tf32", "metric_scale"))
     args = ap.parse_args(argv)
     run_env(ROOT)
     import torch

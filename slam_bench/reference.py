@@ -2,20 +2,27 @@
 port.
 
 The generator knows every frame's true pose and the surface every map
-point should lie on, in float64. The reference aligns what the timed path
-returned to that truth (Umeyama/Horn with scale: a monocular map has no
-metric gauge) and reduces it to the numbers the cell's limits hold:
+point should lie on, in float64 and in metres. The reference aligns what
+the timed path returned to that truth and reduces it to the numbers the
+cell's limits hold. The alignment follows the sensor: a monocular map has
+no metric gauge, so its fit is 7-DoF (Umeyama/Horn with scale); a stereo
+rig, a depth camera and an IMU give the metric scale, so theirs fixes the
+scale at 1 (``with_scale=False``), as the port's dataset runners evaluate
+them:
 
 - ``lost_pct``: the share of the window's frames returned in a state other
   than OK, in % (a frame without a pose is what a user loses);
 - ``ate_pct``: RMSE of the returned camera centres of the window's OK
-  frames after one 7-DoF alignment, as % of their true path length;
+  frames after one alignment, as % of their true path length;
 - ``rpe_med_pct``: median over consecutive OK frames of the error of the
   returned frame-to-frame motion (scaled and rotated by that alignment), as
   % of the window's mean true frame-to-frame motion;
+- ``scale_err_pct``: 100 |s - 1|, s the scale of the returned centres of
+  the window's OK frames against the true ones by a 7-DoF fit, for every
+  sensor (judged only where a cell's limits name it);
 - ``map_err_med_pct``: median distance along z of the map's points from the
   true surface, after the alignment of the map's keyframe centres to their
-  true centres, as % of the surface's depth (5 units).
+  true centres, as % of the surface's depth (5 m).
 
 ``horn_align`` is a frozen copy of ``ygz_tpu_torch/eval/ate.py`` at
 commit 9b79ab1 (the reference's evaluate_ate_scale_euroc.py protocol).
@@ -71,10 +78,12 @@ def lost_pct(ok):
     return 100.0 * float((~ok).sum()) / max(len(ok), 1)
 
 
-def pose_numbers(frame_ids, ok, R_cw, t_cw, true_c):
-    """ate_pct and rpe_med_pct of the window's returned poses; frame_ids
-    [N] consecutive-frame numbering, ok [N] bool, R_cw [N, 3, 3], t_cw
-    [N, 3], true_c [N, 3]. None where fewer than 3 frames are OK."""
+def pose_numbers(frame_ids, ok, R_cw, t_cw, true_c, with_scale=True):
+    """ate_pct, rpe_med_pct and scale_err_pct of the window's returned
+    poses; frame_ids [N] consecutive-frame numbering, ok [N] bool, R_cw
+    [N, 3, 3], t_cw [N, 3], true_c [N, 3]; `with_scale` False fixes the
+    alignment's scale at 1 (a metric sensor). None where fewer than 3
+    frames are OK."""
     frame_ids = np.asarray(frame_ids)
     ok = np.asarray(ok, bool)
     if ok.sum() < 3:
@@ -82,8 +91,9 @@ def pose_numbers(frame_ids, ok, R_cw, t_cw, true_c):
     est = centres(np.asarray(R_cw)[ok], np.asarray(t_cw)[ok])
     gt = np.asarray(true_c, np.float64)[ok]
     if not np.isfinite(est).all():
-        return {"ate_pct": float("inf"), "rpe_med_pct": float("inf")}
-    s, R, t = horn_align(est, gt, with_scale=True)
+        return {"ate_pct": float("inf"), "rpe_med_pct": float("inf"),
+                "scale_err_pct": float("inf")}
+    s, R, t = horn_align(est, gt, with_scale=with_scale)
     aligned = (s * (R @ est.T)).T + t
     ate = float(np.sqrt(((aligned - gt) ** 2).sum(1).mean()))
     steps = np.linalg.norm(np.diff(gt, axis=0), axis=1)
@@ -95,16 +105,25 @@ def pose_numbers(frame_ids, ok, R_cw, t_cw, true_c):
     rpe = np.linalg.norm(d_est - d_gt, axis=1) / mean_step
     return {"ate_pct": 100.0 * ate / float(steps.sum()),
             "rpe_med_pct": 100.0 * float(np.median(rpe)) if pair.any()
-            else float("inf")}
+            else float("inf"),
+            "scale_err_pct": scale_err_pct(est, gt)}
 
 
-def map_err_med_pct(kf_c, kf_true_c, pts):
+def scale_err_pct(est, gt):
+    """100 |s - 1|, s the scale of the centres est [N, 3] against the true
+    centres gt [N, 3]: the 7-DoF fit s R gt + t of the truth onto them, so
+    a trajectory 1.25 times too large reads 25."""
+    return 100.0 * abs(float(horn_align(gt, est, with_scale=True)[0]) - 1.0)
+
+
+def map_err_med_pct(kf_c, kf_true_c, pts, with_scale=True):
     """Median |z - surface(x, y)| of map points pts [M, 3] after aligning
-    the keyframe centres kf_c [K, 3] to their true centres, as % of the
-    surface depth. None with fewer than 3 keyframes or no point."""
+    the keyframe centres kf_c [K, 3] to their true centres (the scale fixed
+    at 1 where `with_scale` is False), as % of the surface depth. None with
+    fewer than 3 keyframes or no point."""
     if len(kf_c) < 3 or len(pts) == 0:
         return None
-    s, R, t = horn_align(kf_c, kf_true_c, with_scale=True)
+    s, R, t = horn_align(kf_c, kf_true_c, with_scale=with_scale)
     P = (s * (R @ np.asarray(pts, np.float64).T)).T + t
     err = np.abs(P[:, 2] - surface_z(P[:, 0], P[:, 1]))
     return 100.0 * float(np.median(err)) / PLANE_Z

@@ -1,6 +1,8 @@
 """The benchmark's generator: a periodic lap over a textured surface, its
-frames rendered on the device under the configuration's camera model, and
-the lap's exact IMU.
+frames rendered on the device under the configuration's camera model, what
+each sensor sees besides (a rectified pair's right view, the metric depth),
+and the lap's exact IMU. The scene's unit is the metre: the surface lies
+about 5 m ahead.
 
 Frozen copies of ``ygz_tpu_torch/utils/synthetic.py`` at commit 9b79ab1,
 kept here so the yardstick cannot move when the port changes:
@@ -311,3 +313,87 @@ def render_lap(lap: Lap, cam: dict, fps: float, seed: int, device,
         # clip then truncate toward zero, as numpy's astype(uint8)
         out[i: i + chunk].copy_(img.clamp(0.0, 255.0).to(torch.uint8))
     return out.numpy()
+
+
+# ------------------------------------------------- the other sensors' views
+# Functions added beside render and render_lap, which are left as they are
+# so that the monocular frames stay the same bit for bit.
+def render_depth(rays, R_cw, t_cw):
+    """[N, H, W] float32 metric depth of the views that render draws: the
+    camera-frame z of render's last ray-surface iterate, which is its ray
+    parameter itself, since the rays have z = 1 (the same eight fixed-point
+    iterations, so a pixel's depth is that of the point whose texture it
+    shows)."""
+    import torch
+
+    Rwc = R_cw.transpose(1, 2)
+    o = -(Rwc @ t_cw[:, :, None])[:, :, 0]
+    d = torch.einsum("nij,hwj->nhwi", Rwc, rays)
+    ox, oy, oz = (o[:, i, None, None] for i in range(3))
+    lam = (PLANE_Z - oz) / d[..., 2]
+    for _ in range(8):
+        x = ox + lam * d[..., 0]
+        y = oy + lam * d[..., 1]
+        lam = (smooth_depth(x, y) - oz) / d[..., 2]
+    return lam
+
+
+def _lap_chunks(lap, cam, fps, device, n_frames, chunk, draw, dtype):
+    """[n, H, W] host array of `dtype`: draw(rays, R_cw, t_cw) of each chunk
+    of the lap's frame poses (frame k at camera time k / fps)."""
+    import torch
+
+    n_lap = int(round(lap.lap_s * fps))
+    n = n_lap if n_frames is None else min(int(n_frames), n_lap)
+    rays = ray_grid(cam, device)
+    R, t = lap.pose(np.arange(n) / fps)
+    R = torch.as_tensor(R, dtype=torch.float32, device=device)
+    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+    out = torch.empty((n, int(cam["height"]), int(cam["width"])),
+                      dtype=dtype)
+    for i in range(0, n, chunk):
+        out[i: i + chunk].copy_(draw(rays, R[i: i + chunk],
+                                     t[i: i + chunk]))
+    return out.numpy()
+
+
+def render_lap_right(lap: Lap, cam: dict, fps: float, seed: int, device,
+                     tex_size: int, n_frames=None, chunk: int = 40):
+    """The right views [n, H, W] uint8 of render_lap's frames: a rectified
+    pair's second camera, with the same pinhole intrinsics and the same
+    rotation, its centre moved by the baseline b = cam["bf"] / cam["fx"]
+    metres along the left camera's own +x axis: t_right = t_cw - [b, 0,
+    0]."""
+    import torch
+
+    tex = make_texture(tex_size, seed, device)
+    b = float(cam["bf"]) / float(cam["fx"])
+
+    def draw(rays, R, t):
+        img = render(tex, rays, R, t - t.new_tensor([b, 0.0, 0.0]))
+        return img.clamp(0.0, 255.0).to(torch.uint8)
+
+    return _lap_chunks(lap, cam, fps, device, n_frames, chunk, draw,
+                       torch.uint8)
+
+
+def render_lap_depth(lap: Lap, cam: dict, fps: float, device, n_frames=None,
+                     chunk: int = 40):
+    """The metric depth maps [n, H, W] float32 of render_lap's frames
+    (render_depth), aligned with them pixel for pixel."""
+    import torch
+
+    return _lap_chunks(lap, cam, fps, device, n_frames, chunk, render_depth,
+                       torch.float32)
+
+
+def frame_imu_span(j: int, fps: float, hz: float):
+    """The IMU samples frame j (camera time j / fps) is fed: the global
+    sample numbers g, sample g at camera time g / hz, with (j - 1) / fps <
+    g / hz <= j / fps, as range(lo, hi). Exact in rationals, so consecutive
+    frames share no sample and skip none. Sample g is lap_imu's sample
+    (g - 1) mod n: the lap's samples repeat with it."""
+    from fractions import Fraction
+
+    r = Fraction(hz) / Fraction(fps)
+    return math.floor((j - 1) * r) + 1, math.floor(j * r) + 1
