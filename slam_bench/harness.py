@@ -22,8 +22,9 @@ right views or the depth maps the sensor needs, or the lap's IMU), builds
 the System for the configuration's sensor, initializes it (a mono-inertial
 System until VINS initialization has run) and tracks the warm frames, and
 drains the mapping worker. The window feeds the sensor's entry
-(``track_monocular``, ``track_stereo``, ``track_rgbd`` or
-``track_mono_vi``) one frame at a time, each when it is due.
+(``ENTRIES``: ``track_monocular``, ``track_stereo``, ``track_rgbd`` or
+``track_mono_vi``) one frame at a time, each when it is due, and stops a
+run on the card that falls ``STOP_LATE_S`` behind the camera.
 """
 from __future__ import annotations
 
@@ -42,10 +43,23 @@ from . import reference, scene
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
-SENSORS = ("MONOCULAR", "STEREO", "RGBD", "MONO_VI")
+# the System entry each sensor's frames are fed through; the runs, the
+# fault tests and the controls all take it from here
+ENTRIES = {"MONOCULAR": "track_monocular", "STEREO": "track_stereo",
+           "RGBD": "track_rgbd", "MONO_VI": "track_mono_vi"}
+SENSORS = tuple(ENTRIES)
+# the sensors that give the metric scale: a stereo baseline, a depth map,
+# an accelerometer
+METRIC_SENSORS = ("STEREO", "RGBD", "MONO_VI")
 # the 1.25 by which the metric_scale control mis-states a metric sensor's
 # scale
 CONTROL_SCALE = 1.25
+# a benchmark run on the card stops when a frame is fed this many seconds
+# after it was due (400 frames at 20 Hz): a program that cannot keep the
+# camera's rate would otherwise feed a late window for many minutes. A
+# sound monocular run has fed a frame 1.3 s late after a loop closure, so
+# the stop stands well above that
+STOP_LATE_S = 20.0
 
 
 # ------------------------------------------------------------------ lookups
@@ -94,6 +108,16 @@ def sensor_of(config: dict) -> str:
     if sensor not in SENSORS:
         raise ValueError(f"sensor {sensor!r}: one of {SENSORS}")
     return sensor
+
+
+def controls(config: dict) -> list:
+    """The correctness controls that mis-state something the configuration
+    has: ``pinhole`` where its settings give a lens distortion,
+    ``metric_scale`` where its sensor gives the metric scale."""
+    dist = camera_dict(settings_numbers(config["settings_path"]))["dist"]
+    return ((["pinhole"] if any(dist) else [])
+            + (["metric_scale"] if sensor_of(config) in METRIC_SENSORS
+               else []))
 
 
 def metric_reader(name: str):
@@ -149,6 +173,15 @@ def camera_dict(nums: dict, scale: float = 1.0) -> dict:
                      for k in ("k1", "k2", "p1", "p2", "k3")]}
 
 
+class FellBehind(RuntimeError):
+    """A run that is no rehearsal fed a frame more than STOP_LATE_S after it
+    was due. `run` is the Run, stopped there."""
+
+    def __init__(self, message, run):
+        super().__init__(message)
+        self.run = run
+
+
 # ---------------------------------------------------------------- generator
 class Stream:
     """The frames of the cell, in order: global frame j is the lap's frame
@@ -175,7 +208,8 @@ class Run:
     """One run of a cell on `device`: set-up, window, optional traced slice,
     the judgement. `scale`, `lap_frames` and `overrides` (TrackerConfig
     fields) are for CPU rehearsals, and `control` for the correctness
-    controls (``readings.py``); the benchmark's own runs leave them."""
+    controls (``readings.py``); the benchmark's own runs leave them. Only
+    a run that is no rehearsal stops when it falls behind the camera."""
 
     CONTROLS = (None, "pinhole", "tf32", "metric_scale")
 
@@ -187,14 +221,14 @@ class Run:
         self.scale = scale
         self.lap_frames = lap_frames
         self.overrides = overrides or {}
+        self.rehearsal = scale != 1.0 or lap_frames is not None
         if control not in self.CONTROLS:
             raise ValueError(f"unknown control {control!r}")
         self.control = control
         self.sensor = sensor_of(cell.config)
-        if control == "metric_scale" and self.sensor not in ("STEREO",
-                                                              "RGBD"):
+        if control == "metric_scale" and self.sensor not in METRIC_SENSORS:
             raise ValueError("the metric_scale control mis-states a stereo "
-                             "baseline or a depth map")
+                             "baseline, a depth map or an accelerometer")
         self.cuda = str(device).startswith("cuda")
         self.mix = cell.traffic
         self.records = []        # (global id, state, T_cw) of the window
@@ -249,7 +283,12 @@ class Run:
                                  "samples")
             tbc = settings_matrix(cfgf["settings_path"], "Camera.Tbc")
             tbc = np.eye(4) if tbc is None else tbc.reshape(4, 4)
-            self.imu = scene.lap_imu(self.lap, self.imu_hz, tbc)
+            gyro, acc = scene.lap_imu(self.lap, self.imu_hz, tbc)
+            if self.control == "metric_scale":
+                # the accelerometer's scale mis-stated: every specific
+                # force, gravity's included, 1.25 times too large
+                acc = acc * CONTROL_SCALE
+            self.imu = (gyro, acc)
         self.stream = Stream(frames, fps, periodic=self.lap_frames is None)
         if self.cuda:
             torch.cuda.synchronize()
@@ -296,7 +335,6 @@ class Run:
             if not np.allclose(s.vio.Tbc, tbc, atol=1e-6):
                 raise ValueError("Camera.Tbc read otherwise by the port")
             vi = {"Tbc": s.vio.Tbc, "vins_init_time": s.vio.vins_init_time}
-        self._track = getattr(self, f"_track_{self.sensor.lower()}")
         t0 = time.perf_counter()
         self.system = System(cam, Sensor[self.sensor], config=cfg,
                              device=self.device, **vi)
@@ -342,24 +380,21 @@ class Run:
         """n frames, one call of the sensor's entry each: [(id, state,
         T_cw)]."""
         frames, ts, ids = self.stream.take(n)
+        entry = getattr(self.system, ENTRIES[self.sensor])
         out = []
         for k in range(n):
-            r = self._track(ids[k], frames[k], ts[k])
+            r = entry(frames[k], *self._inputs(ids[k]), ts[k])
             out.append((ids[k], r[0], r[1]))
         return out
 
-    def _track_monocular(self, j, img, ts):
-        return self.system.track_monocular(img, ts)
-
-    def _track_stereo(self, j, img, ts):
-        return self.system.track_stereo(img, self.side[j % len(self.side)],
-                                        ts)
-
-    def _track_rgbd(self, j, img, ts):
-        return self.system.track_rgbd(img, self.side[j % len(self.side)], ts)
-
-    def _track_mono_vi(self, j, img, ts):
-        return self.system.track_mono_vi(img, self.frame_imu(j), ts)
+    def _inputs(self, j):
+        """What the entry takes between frame j and its time: the right
+        view, the depth map, the IMU slice, or nothing."""
+        if self.sensor == "MONO_VI":
+            return (self.frame_imu(j),)
+        if self.side is not None:
+            return (self.side[j % len(self.side)],)
+        return ()
 
     def frame_imu(self, j):
         """Frame j's IMU samples [(t, gyro, acc)]: those of the lap's with
@@ -382,11 +417,7 @@ class Run:
         t0 = time.perf_counter()
         for k in range(n_due):
             due = t0 + k / rate
-            now = time.perf_counter()
-            if now < due:
-                time.sleep(due - now)
-                now = time.perf_counter()
-            late.append(now - due)
+            late.append(self._wait(due, k))
             self.records += self._feed(1)
             lat.append(time.perf_counter() - due)
         self.window_s = time.perf_counter() - t0
@@ -410,17 +441,42 @@ class Run:
         def run():
             t0 = time.perf_counter()
             for k in range(n):
-                delay = t0 + k / rate - time.perf_counter()
-                if delay > 0:
-                    time.sleep(delay)
+                self._wait(t0 + k / rate, k)
                 self.records += self._feed(1)
             return n
 
         return traced(run)
 
+    def _wait(self, due, k):
+        """Sleep until `due`, when the k-th frame of a paced stretch is due;
+        the seconds it is fed late. A run that is no rehearsal stops
+        (FellBehind) once that passes STOP_LATE_S."""
+        now = time.perf_counter()
+        if now < due:
+            time.sleep(due - now)
+            now = time.perf_counter()
+        late = now - due
+        if late > STOP_LATE_S and not self.rehearsal:
+            stages = ", ".join(f"{name} {ms:.3f} ms x {n}" for name, (ms, n)
+                               in self.stage_means().items())
+            raise FellBehind(
+                f"behind the camera: frame {self.stream.j} fed "
+                f"{late:.3f} s after it was due (the stop is at "
+                f"{STOP_LATE_S} s), after {k} frames of this paced stretch "
+                f"and {self.stream.j} since set-up began; stages since "
+                f"set-up began (mean, count): {stages}", self)
+        return late
+
     def stage_totals(self):
         t = self.system.tracker.timer
         return dict(t.total), dict(t.count)
+
+    def stage_means(self):
+        """{stage: (ms per call, calls)} of the tracker's StageTimer since
+        the System was built, set-up included, by name."""
+        total, count = self.stage_totals()
+        return {name: (1e3 * total[name] / max(count[name], 1), count[name])
+                for name in sorted(total)}
 
     # ............................................................ judge
     def numbers(self):
@@ -472,7 +528,7 @@ def run_cell(cell, seed, seconds, trace=False, device="cuda", t_start=None,
     run = Run(cell, seed, device=device, **rehearsal)
     run.notes["before_setup_s"] = time.perf_counter() - t_start
     run.setup()
-    setup_s = time.perf_counter() - t_start
+    setup_s = run.notes["setup_s"] = time.perf_counter() - t_start
     before = run.stage_totals()
     e2e = run.window(seconds)
     after = run.stage_totals()

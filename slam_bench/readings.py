@@ -10,8 +10,11 @@ benchmark's own runs never run a control. Controls: ``tf32`` switches the
 port's TF32 matmuls and convolutions on (the precision below the float32
 it pins); ``pinhole`` drops the configuration's lens distortion, a
 guarantee the deployment states; ``metric_scale`` gives a stereo System
-its baseline, or an RGB-D System its depth, 1.25 times too large (the
-metric scale such a rig guarantees).
+its baseline, an RGB-D System its depth, or a mono-inertial System every
+acceleration (gravity's included), 1.25 times too large (the metric scale
+such a rig guarantees). ``harness.controls`` names the controls a
+configuration can fail. A run that never initializes, or is stopped
+behind the camera, prints its error.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ def main(argv=None):
         try:
             res, rows, run = run_cell(cell, seed, args.seconds,
                                       control=args.control)
-        except RuntimeError as e:      # a control may never initialize
+        except RuntimeError as e:      # never initialized, or stopped
             print(json.dumps({"seed": seed, "control": args.control,
                               "correct": False, "error": str(e)}),
                   flush=True)

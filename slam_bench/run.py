@@ -11,7 +11,9 @@ metrics; with ``--trace 1`` its per-layer ones), ``device``, with
 ``--trace 1`` ``breakdown``, and last ``compared``: each correctness
 number beside its limit, which also close standard error. It exits non-zero
 and prints no record without enough CUDA cards, when JAX or the JAX package
-was loaded, or when anything it needs is missing.
+was loaded, when the run falls more than ``harness.STOP_LATE_S`` behind the
+camera (it then prints its set-up notes and the stop, last, to standard
+error), or when anything it needs is missing.
 """
 from __future__ import annotations
 
@@ -92,7 +94,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     run_env(ROOT)
-    from .harness import load_cell, run_cell
+    from .harness import FellBehind, load_cell, run_cell
 
     cell = load_cell(args.workload)
     import torch
@@ -102,9 +104,17 @@ def main(argv=None):
         print(f"slam_bench: {args.workload} needs {cell.chips} CUDA "
               f"card(s); {n} visible", file=sys.stderr)
         return 2
-    result, rows, run = run_cell(cell, args.seed, args.seconds,
-                                 trace=bool(args.trace), device="cuda",
-                                 t_start=T_START)
+    try:
+        result, rows, run = run_cell(cell, args.seed, args.seconds,
+                                     trace=bool(args.trace), device="cuda",
+                                     t_start=T_START)
+    except FellBehind as e:
+        print("notes: " + json.dumps(e.run.notes, default=float),
+              file=sys.stderr)
+        print(f"slam_bench: {e}", file=sys.stderr, flush=True)
+        # at once: the mapping worker may be inside a job on the card, and
+        # the interpreter's shutdown would abort under it
+        os._exit(4)
     bad = forbidden_modules()
     if bad:
         print(f"slam_bench: loaded in this process: {bad}", file=sys.stderr)

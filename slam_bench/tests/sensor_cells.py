@@ -7,14 +7,18 @@ never load them.
 
 One run of one of them per seed on the card, at full size, paced, with the
 async worker, as a cell would run (``--control metric_scale`` gives the
-System the baseline or the depth 1.25 times too large):
+System the baseline, the depth or the accelerations 1.25 times too large):
 
     python3 -m slam_bench.tests.sensor_cells --cell euroc_stereo.live \\
         --seed <n> --seconds <s> [--control metric_scale]
 
 It prints one JSON line: the judgement, every correctness number, the
 latency's median and 95th percentile, set-up, the memory peak, keyframes,
-and the window's stereo search per frame.
+the window's stereo search per frame, and of a mono-inertial run the frames
+to VINS initialization, ``scale_err_pct`` and the VI stages in ms per call
+with their calls since set-up began. A run stopped behind the camera
+(``harness.STOP_LATE_S``) prints the stop and what set-up read, and exits
+1.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from slam_bench import harness  # noqa: E402
 
 CELLS = Path(__file__).resolve().parent / "cells"
 NAMES = ("euroc_stereo.live", "euroc_rgbd.live", "euroc_mono_vi.live")
+# the tracker's StageTimer stages of a mono-inertial run
+VI_STAGES = ("vins_init", "vio_fuse", "preint", "vio_ba")
 
 
 def cell(name: str) -> SimpleNamespace:
@@ -50,6 +56,17 @@ def cell(name: str) -> SimpleNamespace:
                            .read_text()),
         workload=json.loads((CELLS / f"{name}.json").read_text()),
         end_to_end=e2e, per_layer=[])
+
+
+def setup_readings(run):
+    """What set-up read: its notes, the frames to VINS initialization, and
+    the VI stages since set-up began as [ms per call, calls]."""
+    means = run.stage_means()
+    return {"vi_init_frames": run.notes.get("vi_init_frames"),
+            "vi_stages_ms": {k: means[k] for k in VI_STAGES if k in means},
+            "setup_notes": {k: run.notes[k] for k in
+                            ("init_frames", "render_s", "init_s", "warm_s",
+                             "setup_s") if k in run.notes}}
 
 
 def readings(res, rows, run):
@@ -71,9 +88,11 @@ def readings(res, rows, run):
         "keyframes": run.notes["keyframes"],
         "stereo_match_ms_per_frame": 1e3 * sec / frames,
         "stereo_match_calls": count,
+        "scale_err_pct": run.notes["numbers"].get("scale_err_pct"),
+        **setup_readings(run),
         "notes": {k: run.notes[k] for k in
-                  ("init_frames", "render_s", "init_s", "warm_s",
-                   "feeder_late_ms_p50", "backlog_at_close")}}
+                  ("feeder_late_ms_p50", "feeder_late_ms_max",
+                   "backlog_at_close")}}
 
 
 def main(argv=None):
@@ -91,12 +110,20 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("sensor_cells: no CUDA card", file=sys.stderr)
         return 2
-    res, rows, run = harness.run_cell(cell(args.cell), args.seed,
-                                      args.seconds, control=args.control,
-                                      t_start=T_START)
-    out = dict(cell=args.cell, seed=args.seed, control=args.control,
-               card=card_label(), **readings(res, rows, run))
-    print(json.dumps(out, default=float), flush=True)
+    head = dict(cell=args.cell, seed=args.seed, control=args.control,
+                card=card_label())
+    try:
+        res, rows, run = harness.run_cell(cell(args.cell), args.seed,
+                                          args.seconds, control=args.control,
+                                          t_start=T_START)
+    except harness.FellBehind as e:
+        print(json.dumps(dict(head, stopped=str(e),
+                              wall_s=time.perf_counter() - T_START,
+                              **setup_readings(e.run)), default=float),
+              flush=True)
+        return 1
+    print(json.dumps(dict(head, **readings(res, rows, run)), default=float),
+          flush=True)
     return 0
 
 

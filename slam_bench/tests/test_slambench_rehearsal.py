@@ -5,8 +5,11 @@ The port runs its plain PyTorch versions on the CPU, at half the camera's
 size with three pyramid levels (a 31-px ORB patch does not fit the fourth
 level of a 376x240 frame) and a partial lap: these runs check the harness,
 not the port's accuracy, which only the card's runs at full size measure.
+The faults are planted at the entry the cell's sensor is fed through
+(``harness.ENTRIES``), whatever the cell is called.
 """
 import json
+import math
 import subprocess
 import sys
 from contextlib import contextmanager
@@ -28,13 +31,38 @@ def toy_cell(name):
     return cell
 
 
+def toy_lap_frames(cell):
+    """The rehearsal's partial lap: 240 frames hold initialization, the
+    toy's warm frames and its windows. A mono-inertial cell's adds the
+    frames set-up may feed while it waits for VINS initialization
+    (``max_vi_init_frames``, which has to reach the settings' own
+    ``test.VINSInitTime`` at ``Camera.fps``) and the warm frames that
+    follow it; the whole lap caps it."""
+    n = TOY["lap_frames"]
+    if harness.sensor_of(cell.config) != "MONO_VI":
+        return n
+    nums = harness.settings_numbers(cell.config["settings_path"])
+    wl = cell.workload
+    need = math.ceil(nums["test.VINSInitTime"] * nums["Camera.fps"])
+    if wl["max_vi_init_frames"] < need:
+        raise ValueError(f"max_vi_init_frames {wl['max_vi_init_frames']} "
+                         f"never reaches test.VINSInitTime: {need} frames")
+    n_lap = round(cell.traffic["lap"]["seconds"] * nums["Camera.fps"])
+    return min(n + wl["max_vi_init_frames"] + wl["warm_frames"], n_lap)
+
+
+def toy(cell):
+    """The rehearsal's arguments of run_cell for `cell`."""
+    return dict(TOY, lap_frames=toy_lap_frames(cell))
+
+
 REHEARSE = """
 import json, sys
 from slam_bench import harness
 from slam_bench.run import build_record, forbidden_modules
-from slam_bench.tests.test_slambench_rehearsal import TOY, toy_cell
+from slam_bench.tests.test_slambench_rehearsal import toy, toy_cell
 cell = toy_cell(sys.argv[1])
-res, rows, run = harness.run_cell(cell, int(sys.argv[2]), 1.5, **TOY)
+res, rows, run = harness.run_cell(cell, int(sys.argv[2]), 1.5, **toy(cell))
 rec = build_record(res, rows, {"platform": "cpu", "kind": "rehearsal",
                                "count": 1})
 print(json.dumps({"forbidden": forbidden_modules(), "record": rec}))
@@ -105,11 +133,11 @@ def frames_left_out(real, block=5):
     about half of the window's frames left out."""
     n = [0]
 
-    def entry(img, ts):
+    def entry(*args):
         n[0] += 1
         if (n[0] // block) % 2:
             return "LOST", np.eye(4, dtype=np.float32)
-        return real(img, ts)
+        return real(*args)
     return entry
 
 
@@ -122,10 +150,11 @@ FAULTS = {"state_unchanged": state_unchanged,
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_timed_path_is_not_correct(cell, fault):
     """A sound window is judged correct, and the fault's window next on the
-    same System not correct. (The toy's first window after initialization
-    is left out: at this size its poses have not yet settled.)"""
+    same System, the fault planted at the sensor's entry, not correct. (The
+    toy's first window after initialization is left out: at this size its
+    poses have not yet settled.)"""
     c = toy_cell(cell)
-    run = harness.Run(c, SEED, **TOY)
+    run = harness.Run(c, SEED, **toy(c))
     run.setup()
     limits = c.workload["limits"]
     try:
@@ -138,7 +167,8 @@ def test_a_broken_timed_path_is_not_correct(cell, fault):
         # partial lap holds: let it wrap
         run.stream.periodic = True
         run.records = []
-        with patched(run.system, "track_monocular", FAULTS[fault]):
+        with patched(run.system, harness.ENTRIES[run.sensor],
+                     FAULTS[fault]):
             run.window(1.5)
         correct, rows = reference.judge(run.numbers(), limits)
         assert not correct, rows
