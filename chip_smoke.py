@@ -136,6 +136,12 @@ import time
 
 import numpy as np
 
+# the peaks, the kernels' operation counts and their work, as the
+# benchmark's rooflines count them
+from slam_bench import roofline
+from slam_bench.roofline import (ARC_OPS, MERGE_OPS, NMS_OPS, TH_OPS,
+                                 interior, pose_gn_work, sparse_align_work)
+
 W, H, F = 752, 480, 458.0
 N_FRAMES = 160
 # an auto-exposure jump: frame 80 comes out at 0.4x brightness. Direct
@@ -146,29 +152,6 @@ DARK_FRAME, DARK_GAIN = 80, 0.4
 # on the recovered camera centre is 1% of the path (~0.083 on 8.33)
 REVISIT, RELOC_BOUND = 120, 0.01
 LEVEL_SHAPES = [(480, 752), (240, 376), (120, 188), (60, 94)]
-# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
-# operations per pixel of the kernels' arithmetic (csrc/fast_score.cu): the
-# arc test is 16 differences, the side test (4 min, 3 max, a compare), 16
-# sign flips and the sliding minimum (44 min + 15 max); a threshold is a
-# subtract, a compare and an add; the merge a compare, an add and a select;
-# the separable NMS 5 max, a compare and a select
-ARC_OPS, TH_OPS, MERGE_OPS, NMS_OPS = 16 + 8 + 16 + 59, 3, 3, 7
-# operations of the Gauss-Newton kernels' arithmetic (csrc/pose_gn.cu,
-# csrc/sparse_align.cu; an FMA counts 2): a mono pose row per GN step (the
-# projection 26, the residual 2, the 2x6 Jacobian 26, chi2 and weights 13,
-# the 2 x 27 products summed 120) and a stereo row's third row (residual 5,
-# Jacobian 15, chi2 2, products 60); a mono row per gate pass (projection
-# 26, residual 2, chi2 4, the gate 4) and its stereo part (residual 5, chi2
-# 2); an alignment point
-# per level's setup (the 7x7 gather blended to 6x6 324, gradients 64, Jp
-# 42) and per step (projection and visibility 34, the 5x5 gather 154, per
-# pixel: residual and Huber weight 6, J 18, weighted J 6, the 27 products
-# summed 54); one 6x6 solve, exponential and composition per step
-POSE_ROW_OPS, POSE_STEREO_ROW_OPS, GN_STEP_OPS = 187, 82, 480
-POSE_GATE_OPS, POSE_STEREO_GATE_OPS = 36, 7
-ALIGN_SETUP_OPS, ALIGN_POINT_OPS, ALIGN_PIXEL_OPS = 430, 188, 84
 
 
 def direct_align_work(n):
@@ -332,14 +315,8 @@ def device_time(fn, iters):
 
 def bound(n_bytes, n_ops):
     """(least ms on the card, "bytes" or "operations")."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def interior(h, w):
-    """Pixels off the 3-px frame, the ones that run the arc test."""
-    return max(h - 6, 0) * max(w - 6, 0)
+    secs, by = roofline.bound(n_bytes, n_ops)
+    return 1e3 * secs, by
 
 
 def stacked_pyramid(frame):
@@ -627,14 +604,14 @@ def check_step_vs_cpu(system, frames):
     import torch
     from ygz_tpu_torch.eval.ate import rotation_angle_deg
     from ygz_tpu_torch.frontend.framestep import (FrameCarry, frame_step,
-                                                  unpack_out)
+                                                  pack_pred_np, unpack_out)
 
     tr = system.tracker
     cap = tr.cfg.max_track
-    pred = tr._no_pred
+    pred = torch.as_tensor(pack_pred_np())
     carries = {"cuda": tr._carry,
                "cpu": FrameCarry(*(a.cpu() for a in tr._carry))}
-    caches = {"cuda": tr._snap[1], "cpu": tr._snap[1].cpu()}
+    caches = {"cuda": tr._snap.cache, "cpu": tr._snap.cache.cpu()}
     worst_rot = worst_t = 0.0
     worst_mask = 1.0
     for img in frames:
@@ -1617,22 +1594,23 @@ def check_graph_vs_eager(system, frames, profiled=True):
     from ygz_tpu_torch.utils.profiling import LAUNCH_CALLS
 
     tr = system.tracker
-    graph = tr._graph
+    stepper = tr._stepper
+    graph = stepper.graph
     cap = tr.cfg.max_track
-    cache = tr._snap_cache(tr._snap)
+    cache = tr._snap.ready_cache()
     start = FrameCarry(*(a.clone() for a in graph.carry))
 
     def eager_run(carry, imgs):
         outs = []
         for img in imgs:
             carry, packed = frame_step(torch.as_tensor(img, device="cuda"),
-                                       carry, cache, graph.no_pred,
+                                       carry, cache, stepper.no_pred,
                                        graph.remap, tr.intr)
             outs.append(packed.cpu())
         return carry, outs
 
     def graph_run(carry, imgs):
-        graph.load(carry, cache, graph.no_pred)
+        graph.load(carry, cache, stepper.no_pred)
         return graph.carry, [graph.step(torch.from_numpy(img)).cpu()
                              for img in imgs]
 
@@ -1846,7 +1824,7 @@ def record_step_calls(system, img):
     from ygz_tpu_torch.frontend import sparse_align
 
     tr = system.tracker
-    graph = tr._graph
+    stepper = tr._stepper
     calls = {"pose": [], "align": [], "direct": []}
 
     def recorder(key, fn, names):
@@ -1873,10 +1851,11 @@ def record_step_calls(system, img):
               sparse_align.sparse_image_align.launches,
               direct_tracker.direct_align.launches)
     try:
-        carry = framestep.FrameCarry(*(a.clone() for a in graph.carry))
+        carry = framestep.FrameCarry(
+            *(a.clone() for a in stepper.graph.carry))
         framestep.frame_step(torch.as_tensor(img, device="cuda"), carry,
-                             tr._snap_cache(tr._snap), graph.no_pred,
-                             graph.remap, tr.intr)
+                             tr._snap.ready_cache(), stepper.no_pred,
+                             stepper.graph.remap, tr.intr)
         torch.cuda.synchronize()
     finally:
         (direct_tracker.pose_optimization, framestep.sparse_image_align,
@@ -1897,9 +1876,9 @@ def gn_kernel_names(system, frames):
     from ygz_tpu_torch.utils.profiling import device_events
 
     tr = system.tracker
-    graph = tr._graph
+    graph = tr._stepper.graph
     saved = FrameCarry(*(a.clone() for a in graph.carry))
-    graph.load(None, tr._snap_cache(tr._snap), graph.no_pred)
+    graph.load(None, tr._snap.ready_cache(), tr._stepper.no_pred)
     imgs = iter(frames)
     dev, _ = device_events(lambda: graph.step(torch.from_numpy(next(imgs))),
                            len(frames))
@@ -2093,23 +2072,14 @@ def check_gn_kernels(system, frames):
         f"pose_gn at the main path's N={N}",
         lambda: optim.pose_optimization(**kw),
         lambda: optim.pose_optimization_torch(**kw), rounds * iters,
-        # X, uv, inv_sigma2, valid, R0, t0 in; R, t, inliers, n, chi2 out
-        N * (12 + 8 + 4 + 1) + 48 + 48 + N + 8 + 4 * N,
-        rounds * iters * (N * POSE_ROW_OPS + n_st * POSE_STEREO_ROW_OPS
-                          + GN_STEP_OPS)
-        + rounds * (N * POSE_GATE_OPS + n_st * POSE_STEREO_GATE_OPS))
+        *pose_gn_work(N, rounds, iters, n_st))
     lv, it = main["levels"], main["iters"]
     N = int(main["uv0"].shape[0])
     align_rec = time_gn(
         f"sparse_align at the main path's N={N}, levels {lv}",
         lambda: sparse_align.sparse_image_align(**main),
         lambda: sparse_align.sparse_image_align_torch(**main), len(lv) * it,
-        # uv0, X, valid, R, t in; each point's 7x7 reference and 5x5 current
-        # window at each level read once; R, t, n_meas, mean_res out
-        N * (8 + 12 + 1) + 48 + 4 * N * len(lv) * (49 + 25) + 48 + 12,
-        len(lv) * (N * ALIGN_SETUP_OPS + it * (
-            N * (ALIGN_POINT_OPS + 16 * ALIGN_PIXEL_OPS) + GN_STEP_OPS))
-        + N * (ALIGN_POINT_OPS + 32))
+        *sparse_align_work(N, len(lv), it))
     direct = direct_calls[0]
     direct_err = hold_direct("main path", direct)
     N = int(direct["pt_xyz"].shape[0])
@@ -2846,8 +2816,8 @@ def check_distorted_graph(smi):
               for i, img in enumerate(frames[:N_DIST])]
     print(f"distorted camera: {states.count('OK')}/{N_DIST} OK "
           f"({''.join(s[0] for s in states)}); remap in the graph "
-          f"{system.tracker._graph.remap is not None}")
-    if states[-1] != "OK" or system.tracker._graph.remap is None:
+          f"{system.tracker._stepper.graph.remap is not None}")
+    if states[-1] != "OK" or system.tracker._stepper.graph.remap is None:
         raise RuntimeError("the distorted-camera run did not reach a "
                            "replayed frame step with its remap")
     rec = check_graph_vs_eager(system, frames[N_DIST:], profiled=False)
@@ -3050,7 +3020,7 @@ def main() -> int:
 
     (system, states, ladder, secs), fused, single = run_counted(
         fast, "main path", lambda: run_main_path(frames[:N_FRAMES], "cuda"))
-    main_replays = system.tracker._graph.replays
+    main_replays = system.tracker._stepper.graph.replays
     main_per_replay, main_replay_ms = gn_kernel_names(system,
                                                       frames[N_FRAMES:])
     print(f"main path: {main_replays} frame-step graph replays; pose_gn "

@@ -331,16 +331,17 @@ def test_frame_step_graph_replays_the_eager_step(cuda):
     for i, img in enumerate(frames[:12]):
         system.track_monocular(img, i * 0.05)
     tr = system.tracker
-    graph = tr._graph
+    stepper = tr._stepper
+    graph = stepper.graph
     assert tr.state.name == "OK" and graph is not None and graph.replays > 0
     cap = tr.cfg.max_track
-    cache = tr._snap[1]
+    cache = tr._snap.cache
     exact = True
     for img in frames[12:]:
         carry = FrameCarry(*(a.clone() for a in graph.carry))
         new, eager = frame_step(torch.as_tensor(img, device=cuda), carry,
-                                cache, graph.no_pred, None, tr.intr)
-        graph.load(graph.carry, cache, graph.no_pred)
+                                cache, stepper.no_pred, None, tr.intr)
+        graph.load(graph.carry, cache, stepper.no_pred)
         replay = graph.step(torch.as_tensor(img)).clone()
         a = unpack_out(eager.cpu().numpy(), cap)
         b = unpack_out(replay.cpu().numpy(), cap)
@@ -370,7 +371,7 @@ def test_batched_path_on_the_card_matches_the_cpu(cuda):
         out = system.track_monocular_batch(frames, stamps)
         states.append([name for name, _ in out])
         if dev is cuda:
-            assert system.tracker._graph.replays >= 24
+            assert system.tracker._stepper.graph.replays >= 24
     assert states[0] == states[1], states
     assert states[0][-1] == "OK"
 
@@ -388,7 +389,7 @@ def syncing_step(*args, **kw):
 
 framestep_graph.frame_step = syncing_step
 try:
-    framestep_graph.FrameStepGraph(120, 160, 64, (100.0, 100.0, 79.5, 59.5))
+    framestep_graph.FrameStepper(120, 160, 64, (100.0, 100.0, 79.5, 59.5))
 except RuntimeError as e:
     print("capture refused:", str(e).splitlines()[0])
     raise SystemExit(3)
@@ -454,19 +455,44 @@ def test_async_system_builds_on_cuda_by_default(cuda):
 
 
 @pytest.mark.cuda
-def test_frame_step_batch_on_cuda_needs_its_graph(cuda):
-    """frame_step_batch on CUDA tensors replays the caller's graph; without
-    one it raises instead of capturing a graph per call."""
-    from ygz_tpu_torch.frontend.framestep import (CACHE_COLS, FrameCarry,
-                                                  frame_step_batch)
+def test_frame_stepper_chunk_on_the_card_matches_eager_steps(cuda):
+    """A tracker's FrameStepper: one chunk of 8 frames (staged through its
+    pinned slot, 8 chained replays, the queued readback) against 8 eager
+    frame_step calls from the same carry and cache: poses within 1e-5,
+    tracked and visible masks equal, the kept pyramids the eager ones."""
+    from ygz_tpu_torch.frontend.framestep import (FrameCarry, frame_step,
+                                                  unpack_out)
+    from ygz_tpu_torch.system import Sensor, System
 
-    carry = FrameCarry(pyr=torch.zeros(180, 160, device=cuda),
-                       state=torch.zeros(24, device=cuda),
-                       pts=torch.zeros(64, 6, device=cuda))
-    with pytest.raises(ValueError, match="FrameStepGraph"):
-        frame_step_batch(torch.zeros(2, 120, 160, device=cuda), carry,
-                         torch.zeros(64, CACHE_COLS, device=cuda), None,
-                         (100.0, 100.0, 79.5, 59.5))
+    cam, frames = _sweep_frames(20)
+    system = System(cam, Sensor.MONOCULAR)
+    for i, img in enumerate(frames[:12]):
+        system.track_monocular(img, i * 0.05)
+    tr = system.tracker
+    stepper = tr._stepper
+    assert tr.state.name == "OK" and stepper.graph is not None
+    cap = tr.cfg.max_track
+    cache = tr._snap.cache
+    start = FrameCarry(*(a.clone() for a in stepper.graph.carry))
+    chunk = frames[12:20]
+    carry, eager = FrameCarry(*(a.clone() for a in start)), []
+    for img in chunk:
+        carry, packed = frame_step(torch.as_tensor(img, device=cuda), carry,
+                                   cache, stepper.no_pred, None, tr.intr)
+        eager.append((unpack_out(packed.cpu().numpy(), cap), carry.pyr))
+    replays = stepper.graph.replays
+    last, outs_fn, pyr_fns = stepper.step_batch(chunk, start, cache)
+    outs = outs_fn()
+    assert stepper.graph.replays == replays + len(chunk)
+    assert outs.shape[0] == len(pyr_fns) == len(chunk)
+    for b, (a, pyr) in enumerate(eager):
+        got = unpack_out(outs[b], cap)
+        np.testing.assert_allclose(got.R, a.R, atol=1e-5)
+        np.testing.assert_allclose(got.t, a.t, atol=1e-5)
+        assert np.array_equal(got.tracked, a.tracked)
+        assert np.array_equal(got.visible, a.visible)
+        torch.testing.assert_close(pyr_fns[b](), pyr)
+    torch.testing.assert_close(last.state, carry.state, rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -568,15 +594,16 @@ def test_frame_step_graph_with_a_remap_grid_replays_the_eager_step(cuda):
     for i, img in enumerate(frames[:24]):
         system.track_monocular(img, i * 0.05)
     tr = system.tracker
-    graph = tr._graph
+    stepper = tr._stepper
+    graph = stepper.graph
     assert tr.state.name == "OK" and graph.remap is not None
     assert torch.equal(graph.remap, tr._remap)
-    cache = tr._snap[1]
+    cache = tr._snap.cache
     for img in frames[24:]:
         carry = FrameCarry(*(a.clone() for a in graph.carry))
         new, eager = frame_step(torch.as_tensor(img, device=cuda), carry,
-                                cache, graph.no_pred, tr._remap, tr.intr)
-        graph.load(graph.carry, cache, graph.no_pred)
+                                cache, stepper.no_pred, tr._remap, tr.intr)
+        graph.load(graph.carry, cache, stepper.no_pred)
         replay = graph.step(torch.as_tensor(img)).clone()
         assert torch.equal(eager, replay)
         assert all(torch.equal(x, y) for x, y in zip(new, graph.carry))
@@ -790,17 +817,18 @@ def test_frame_step_launches_each_gn_kernel(cuda):
     for i, img in enumerate(frames[:12]):
         system.track_monocular(img, i * 0.05)
     tr = system.tracker
-    graph = tr._graph
+    stepper = tr._stepper
+    graph = stepper.graph
     assert tr.state.name == "OK" and graph is not None
-    cache = tr._snap[1]
+    cache = tr._snap.cache
     before = (optim.pose_optimization.launches,
               sa.sparse_image_align.launches)
     frame_step(torch.as_tensor(frames[12], device=cuda),
                FrameCarry(*(a.clone() for a in graph.carry)), cache,
-               graph.no_pred, None, tr.intr)
+               stepper.no_pred, None, tr.intr)
     assert (optim.pose_optimization.launches - before[0],
             sa.sparse_image_align.launches - before[1]) == (2, 1)
-    graph.load(graph.carry, cache, graph.no_pred)
+    graph.load(graph.carry, cache, stepper.no_pred)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         graph.step(torch.as_tensor(frames[13]))
         torch.cuda.synchronize()
@@ -839,7 +867,8 @@ def _main_path_direct():
     for i, img in enumerate(frames[:12]):
         system.track_monocular(img, i * 0.05)
     tr = system.tracker
-    graph = tr._graph
+    stepper = tr._stepper
+    graph = stepper.graph
     assert tr.state.name == "OK" and graph is not None
     calls = []
     real = framestep.track_local_map_direct
@@ -852,8 +881,8 @@ def _main_path_direct():
     try:
         framestep.frame_step(
             torch.as_tensor(frames[12], device="cuda"),
-            FrameCarry(*(a.clone() for a in graph.carry)), tr._snap[1],
-            graph.no_pred, None, tr.intr)
+            FrameCarry(*(a.clone() for a in graph.carry)), tr._snap.cache,
+            stepper.no_pred, None, tr.intr)
     finally:
         framestep.track_local_map_direct = real
     torch.cuda.synchronize()
@@ -998,15 +1027,16 @@ def test_frame_step_launches_the_direct_align_kernel_twice(cuda):
 
     system, frames, _ = _main_path_direct()
     tr = system.tracker
-    graph = tr._graph
-    cache = tr._snap[1]
+    stepper = tr._stepper
+    graph = stepper.graph
+    cache = tr._snap.cache
     before = dt.direct_align.launches
     frame_step(torch.as_tensor(frames[12], device=cuda),
                FrameCarry(*(a.clone() for a in graph.carry)), cache,
-               graph.no_pred, None, tr.intr)
+               stepper.no_pred, None, tr.intr)
     assert dt.direct_align.launches - before == 2
     saved = FrameCarry(*(a.clone() for a in graph.carry))
-    graph.load(graph.carry, cache, graph.no_pred)
+    graph.load(graph.carry, cache, stepper.no_pred)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         graph.step(torch.as_tensor(frames[13]))
         torch.cuda.synchronize()

@@ -111,3 +111,48 @@ def test_frame_step_matches_jax_over_frames(sequence):
         R_true, t_true = _pose(i)
         assert rot_angle_deg(ot.R, R_true) < 0.2
         np.testing.assert_allclose(ot.t, t_true, atol=1e-2)
+
+
+def test_frame_stepper_runs_the_eager_steps_on_the_cpu(sequence):
+    """FrameStepper on the CPU: its per-frame call is frame_step (with and
+    without a prediction) and its chunk call frame_step_batch, bit for bit,
+    with the frames' pyramids kept through its functions; a tracker's
+    reset() keeps its stepper."""
+    from ygz_tpu_torch.frontend.framestep_graph import FrameStepper
+    from ygz_tpu_torch.frontend.tracker import MonoTracker
+    from ygz_tpu_torch.geometry.camera import Camera
+
+    frames, cache, carry = sequence
+    intr = (F, F, W / 2.0 - 0.5, H / 2.0 - 0.5)
+    start = interop.carry_from_numpy(*(np.asarray(a) for a in carry),
+                                     device="cpu")
+    cache_t = interop.cache_from_numpy(cache, device="cpu")
+    imgs = [f.astype(np.uint8) for f in frames[1:5]]
+    stepper = FrameStepper(H, W, CAP, intr, device="cpu")
+    assert stepper.graph is None
+    R1, t1 = _pose(1)
+    preds = [None, t_(tfs.pack_pred_np(R1, t1, True))]
+    for pred in preds:
+        got_c = want_c = start
+        for img in imgs:
+            want_c, want = tfs.frame_step(
+                torch.as_tensor(img), want_c, cache_t,
+                t_(tfs.pack_pred_np()) if pred is None else pred, None, intr)
+            got_c, got, pyr_fn = stepper.step(img, got_c, cache_t, pred)
+            assert torch.equal(got, want)
+            assert all(torch.equal(a, b) for a, b in zip(got_c, want_c))
+            assert torch.equal(pyr_fn(), want_c.pyr)
+            assert pyr_fn() is pyr_fn()
+    last, outs, pyrs = tfs.frame_step_batch(
+        torch.as_tensor(np.stack(imgs)), start, cache_t, None, intr)
+    got_c, outs_fn, pyr_fns = stepper.step_batch(imgs, start, cache_t)
+    np.testing.assert_array_equal(outs_fn(), np_(outs))
+    assert len(pyr_fns) == len(imgs)
+    assert all(torch.equal(f(), p) for f, p in zip(pyr_fns, pyrs))
+    assert all(torch.equal(a, b) for a, b in zip(got_c, last))
+
+    tr = MonoTracker(Camera.make(F, F, intr[2], intr[3], W, H),
+                     device="cpu")
+    kept = tr._frame_stepper()
+    tr.reset()
+    assert tr._stepper is kept and tr._frame_stepper() is kept

@@ -177,3 +177,9 @@ def test_other_devices_raise():
                                torch.ones(8, dtype=torch.bool, device=meta),
                                INTR, torch.eye(3, device=meta),
                                torch.zeros(3, device=meta))
+    # CPU points with a pose elsewhere: refused before the plain version
+    with pytest.raises(ValueError, match="inputs on different devices"):
+        topt.pose_optimization(torch.zeros(8, 3), torch.zeros(8, 2),
+                               torch.ones(8), torch.ones(8, dtype=torch.bool),
+                               torch.eye(3, device=meta), torch.zeros(3),
+                               INTR)

@@ -221,14 +221,11 @@ def pose_optimization(X, uv, inv_sigma2, valid, R0, t0, intr,
     CUDA tensors run one launch of the hand-written kernel (counted in
     ``pose_optimization.launches``); CPU tensors run the plain version
     ``pose_optimization_torch``; any other device raises."""
-    if X.device.type == "cpu":
-        return pose_optimization_torch(X, uv, inv_sigma2, valid, R0, t0,
-                                       intr, rounds, iters_per_round,
-                                       chi2_th, ur, bf)
-    if X.device.type != "cuda":
-        raise ValueError(f"pose_optimization: unsupported device {X.device}")
-    return _pose_gn(X, uv, inv_sigma2, valid, R0, t0, intr, rounds,
-                    iters_per_round, chi2_th, ur, bf)
+    args = (X, uv, inv_sigma2, valid, R0, t0, intr, rounds, iters_per_round,
+            chi2_th, ur, bf)
+    return cuda_build.on_device(
+        "pose_optimization", (X, uv, inv_sigma2, valid, R0, t0, ur),
+        lambda: _pose_gn(*args), lambda: pose_optimization_torch(*args))
 
 
 def _pose_gn(X, uv, inv_sigma2, valid, R0, t0, intr, rounds,
@@ -250,9 +247,6 @@ def _pose_gn(X, uv, inv_sigma2, valid, R0, t0, intr, rounds,
     if tuple(R0.shape) != (3, 3) or tuple(t0.shape) != (3,) \
             or R0.dtype != f32 or t0.dtype != f32:
         raise TypeError("pose_optimization: R0 [3, 3] and t0 [3] float32")
-    tensors = (X, uv, is2, valid, R0, t0) + (() if ur is None else (ur,))
-    if any(x.device != X.device for x in tensors):
-        raise ValueError("pose_optimization: inputs on different devices")
     R0, t0 = R0.contiguous(), t0.contiguous()
     fx, fy, cx, cy = (float(v) for v in intr)
     p = ctypes.c_void_p

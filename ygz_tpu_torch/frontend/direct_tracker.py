@@ -216,13 +216,6 @@ def refine_matches_core_torch(cur_pyr, R_cur, t_cur,
     return uv, ok & visible
 
 
-def _device_of(name, pt_xyz):
-    dev = pt_xyz.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    return dev
-
-
 def track_local_map_direct(cur_pyr, R_pred, t_pred,
                            pt_xyz, pt_valid, pt_patch, pt_ref_uv,
                            pt_ref_level, pt_ref_R, pt_ref_t,
@@ -235,23 +228,26 @@ def track_local_map_direct(cur_pyr, R_pred, t_pred,
     ``track_local_map_direct_torch``; any other device raises."""
     pts = (pt_xyz, pt_valid, pt_patch, pt_ref_uv, pt_ref_level, pt_ref_R,
            pt_ref_t)
-    if _device_of("track_local_map_direct", pt_xyz).type == "cpu":
-        return track_local_map_direct_torch(cur_pyr, R_pred, t_pred, *pts,
-                                            intr, n_levels)
-    stack, h0 = stack_and_height(cur_pyr, n_levels)
-    uv1, ok1, setup = direct_align(stack, h0, pts, intr, R_pred, t_pred,
-                                   n_levels=n_levels)
-    res = pose_optimization(pt_xyz, uv1, setup.inv_sigma2, ok1, R_pred,
-                            t_pred, intr)
-    uv_out, ok_out, _ = direct_align(stack, h0, pts, intr, res.R, res.t,
-                                     setup=setup, prev=(uv1, ok1),
-                                     n_levels=n_levels)
-    res = pose_optimization(pt_xyz, uv_out, setup.inv_sigma2, ok_out,
-                            res.R, res.t, intr)
-    return DirectTrackResult(R=res.R, t=res.t, tracked=res.inliers,
-                             aligned=ok_out, visible=setup.visible,
-                             uv=uv_out, level=setup.level,
-                             n_inliers=res.n_inliers)
+
+    def launch():
+        stack, h0 = stack_and_height(cur_pyr, n_levels)
+        uv1, ok1, setup = direct_align(stack, h0, pts, intr, R_pred, t_pred,
+                                       n_levels=n_levels)
+        res = pose_optimization(pt_xyz, uv1, setup.inv_sigma2, ok1, R_pred,
+                                t_pred, intr)
+        uv_out, ok_out, _ = direct_align(stack, h0, pts, intr, res.R, res.t,
+                                         setup=setup, prev=(uv1, ok1),
+                                         n_levels=n_levels)
+        res = pose_optimization(pt_xyz, uv_out, setup.inv_sigma2, ok_out,
+                                res.R, res.t, intr)
+        return DirectTrackResult(R=res.R, t=res.t, tracked=res.inliers,
+                                 aligned=ok_out, visible=setup.visible,
+                                 uv=uv_out, level=setup.level,
+                                 n_inliers=res.n_inliers)
+    return cuda_build.on_device(
+        "track_local_map_direct", (*pts, R_pred, t_pred), launch,
+        lambda: track_local_map_direct_torch(cur_pyr, R_pred, t_pred, *pts,
+                                             intr, n_levels))
 
 
 def refine_matches_core(cur_pyr, R_cur, t_cur,
@@ -265,13 +261,16 @@ def refine_matches_core(cur_pyr, R_cur, t_cur,
     ``refine_matches_core_torch``; any other device raises."""
     pts = (pt_xyz, pt_valid, pt_patch, pt_ref_uv, pt_ref_level, pt_ref_R,
            pt_ref_t)
-    if _device_of("refine_matches_core", pt_xyz).type == "cpu":
-        return refine_matches_core_torch(cur_pyr, R_cur, t_cur, *pts, intr,
-                                         n_levels)
-    stack, h0 = stack_and_height(cur_pyr, n_levels)
-    uv, ok, setup = direct_align(stack, h0, pts, intr, R_cur, t_cur,
-                                 n_levels=n_levels)
-    return uv, ok & setup.visible
+
+    def launch():
+        uv, ok, setup = direct_align(*stack_and_height(cur_pyr, n_levels),
+                                     pts, intr, R_cur, t_cur,
+                                     n_levels=n_levels)
+        return uv, ok & setup.visible
+    return cuda_build.on_device(
+        "refine_matches_core", (*pts, R_cur, t_cur), launch,
+        lambda: refine_matches_core_torch(cur_pyr, R_cur, t_cur, *pts, intr,
+                                          n_levels))
 
 
 class DirectSetup(NamedTuple):
@@ -296,12 +295,18 @@ def direct_align(stack, h0: int, pts, intr, R, t, setup=None, prev=None,
     points. prev (uv [N, 2], ok [N]): rows with ok keep uv and are not
     aligned again. Returns (uv [N, 2] level-0, zero where not aligned;
     ok [N]; the DirectSetup). Counted in ``direct_align.launches``."""
+    return cuda_build.on_device(
+        "direct_align", (*pts, stack, R, t),
+        lambda: _direct_align(stack, h0, pts, intr, R, t, setup, prev,
+                              n_levels))
+
+
+def _direct_align(stack, h0, pts, intr, R, t, setup, prev, n_levels):
+    """direct_align's checks and its launch."""
     f32, b8 = torch.float32, torch.bool
     pt_xyz, pt_valid, pt_patch, pt_ref_uv, pt_ref_level, pt_ref_R, \
         pt_ref_t = pts
     dev = pt_xyz.device
-    if dev.type != "cuda":
-        raise ValueError(f"direct_align: unsupported device {dev}")
     N = pt_xyz.shape[0]
     X, sx = cuda_build.rows_arg(pt_xyz, 3, f32, "pt_xyz")
     valid, sval = cuda_build.rows_arg(pt_valid, 0, b8, "pt_valid")
@@ -327,8 +332,6 @@ def direct_align(stack, h0: int, pts, intr, R, t, setup=None, prev=None,
     if tuple(R.shape) != (3, 3) or tuple(t.shape) != (3,) \
             or R.dtype != f32 or t.dtype != f32:
         raise TypeError("direct_align: R [3, 3] and t [3] float32")
-    if any(x.device != dev for x in (*rows, stack, R, t)):
-        raise ValueError("direct_align: inputs on different devices")
     if prev is not None and setup is None:
         raise ValueError("direct_align: prev needs a given setup")
     sh, w0 = stack.shape

@@ -149,14 +149,13 @@ def sparse_image_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr,
     CUDA tensors run one launch of the hand-written kernel over all levels
     (counted in ``sparse_image_align.launches``); CPU tensors run the plain
     version ``sparse_image_align_torch``; any other device raises."""
-    if uv0.device.type == "cpu":
-        return sparse_image_align_torch(ref_pyr, cur_pyr, uv0, X_ref, valid,
-                                        intr, R_init, t_init, levels, iters)
-    if uv0.device.type != "cuda":
-        raise ValueError(f"sparse_image_align: unsupported device "
-                         f"{uv0.device}")
-    return _sparse_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr, R_init,
-                         t_init, levels, iters)
+    args = (ref_pyr, cur_pyr, uv0, X_ref, valid, intr, R_init, t_init,
+            levels, iters)
+    tensors = [uv0, X_ref, valid, R_init, t_init] + [
+        pyr[lvl] for pyr in (ref_pyr, cur_pyr) for lvl in levels]
+    return cuda_build.on_device(
+        "sparse_image_align", tensors, lambda: _sparse_align(*args),
+        lambda: sparse_image_align_torch(*args))
 
 
 def _sparse_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr, R_init, t_init,
@@ -177,10 +176,6 @@ def _sparse_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr, R_init, t_init,
                         "float32")
     ref_ptrs, ref_hws = _level_args(ref_pyr, levels, "ref_pyr")
     cur_ptrs, cur_hws = _level_args(cur_pyr, levels, "cur_pyr")
-    tensors = [X_ref, valid, R_init, t_init] + [
-        pyr[lvl] for pyr in (ref_pyr, cur_pyr) for lvl in levels]
-    if any(x.device != dev for x in tensors):
-        raise ValueError("sparse_image_align: inputs on different devices")
     R_init, t_init = R_init.contiguous(), t_init.contiguous()
     # the level intrinsics as the plain version forms them (Python floats)
     fx, fy, cx, cy = (float(v) for v in intr)

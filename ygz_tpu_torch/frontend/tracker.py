@@ -7,9 +7,9 @@ MonoTracker: initialize (ORB + two-view) -> per frame the fused step
 (sparse alignment seeded by the last frame, direct local-map tracking with a
 point cache, pose GN) -> keyframe decision -> mapping tail (triangulation,
 fusion, local BA, culling, patch refresh), inline or, with
-``async_mapping``, on a worker thread with its own CUDA stream. On the card
-the frame step is replayed as a captured CUDA graph
-(``framestep_graph.FrameStepGraph``). ``track_batch`` tracks chunks of
+``async_mapping``, on a worker thread with its own CUDA stream. The frame
+step reaches the device through ``framestep_graph.FrameStepper`` (a
+captured CUDA graph replayed on the card). ``track_batch`` tracks chunks of
 ``track_batch`` frames with ``pipeline_depth`` chunks in flight. When direct
 tracking fails, the feature fallback ladder (motion model -> reference KF
 -> feature local map) runs before the tracker declares itself LOST; a LOST
@@ -27,14 +27,13 @@ overrides them.
 from __future__ import annotations
 
 import enum
-import itertools
 import os
 import queue
 import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,9 +53,9 @@ from ..ops.stereo import stereo_match_features
 from ..parallel.dist_ba import Mesh
 from ..utils.profiling import StageTimer, set_frame
 from .extractor import OrbExtractor
-from .framestep import (build_pyramid_stacked, frame_step, frame_step_batch,
-                        make_carry, pack_cache_np, pack_pred_np, unpack_out)
-from .framestep_graph import FrameStepGraph
+from .framestep import (build_pyramid_stacked, make_carry, pack_cache_np,
+                        pack_pred_np, unpack_out)
+from .framestep_graph import FrameStepper
 
 
 def _depth_at(depth, uv):
@@ -69,56 +68,31 @@ def _depth_at(depth, uv):
     return depth[yi, xi]
 
 
-def _once(fn):
-    """A function returning fn()'s result, computed at the first call."""
-    box = []
+class Snapshot(NamedTuple):
+    """What the frame step tracks against, published in one attribute
+    write (the tracking thread reads it without the lock): the cache's map
+    point ids, the device cache, the reference keyframe (-1: none) and its
+    pose, the cached points' world positions, the event after which the
+    cache is ready on the publishing thread's stream (None on the CPU), and
+    whether the mapping worker published it."""
+    ids: np.ndarray
+    cache: torch.Tensor
+    ref_kf: int
+    R_ref: np.ndarray
+    t_ref: np.ndarray
+    xyz: np.ndarray
+    ready: Optional[torch.cuda.Event]
+    from_worker: bool
 
-    def get():
-        if not box:
-            box.append(fn())
-        return box[0]
-    return get
-
-
-class _ChunkSlot:
-    """The buffers of one track_batch chunk in flight on the card: its
-    frames in pinned host memory and on the card, its packed outputs and
-    stacked pyramids on the card, the outputs' pinned readback, and the
-    events that order their reuse. The graph's static buffers are
-    overwritten by every replay; a slot holds one chunk's copies."""
-
-    def __init__(self, B, graph: FrameStepGraph, dtype):
-        dev = graph.device
-        H, W = graph.img.shape
-        self.host_imgs = torch.empty((B, H, W), dtype=dtype, pin_memory=True)
-        self.imgs = torch.empty((B, H, W), dtype=dtype, device=dev)
-        self.outs = torch.empty((B, graph.out.numel()), device=dev)
-        self.pyrs = torch.empty((B,) + tuple(graph.carry.pyr.shape),
-                                device=dev)
-        self.host_outs = torch.empty(tuple(self.outs.shape), pin_memory=True)
-        self.uploaded = torch.cuda.Event()
-        self.done = torch.cuda.Event()
-
-    def stage(self, frames):
-        """The chunk's frames through pinned memory in one non-blocking
-        copy, once this slot's previous upload has left the buffer."""
-        self.uploaded.synchronize()
-        host = self.host_imgs.numpy()
-        for b, f in enumerate(frames):
-            host[b] = f
-        self.imgs.copy_(self.host_imgs, non_blocking=True)
-        self.uploaded.record()
-
-    def read_back(self):
-        """Queue the outputs' readback; returns a function that waits for it
-        and gives a numpy copy (the pinned buffer is reused)."""
-        self.host_outs.copy_(self.outs, non_blocking=True)
-        self.done.record()
-
-        def get():
-            self.done.synchronize()
-            return self.host_outs.numpy().copy()
-        return get
+    def ready_cache(self):
+        """The device cache, ready on this thread's stream: a snapshot
+        published on another stream is waited for, and its memory kept
+        until this stream is done with it."""
+        if self.ready is not None:
+            stream = torch.cuda.current_stream(self.cache.device)
+            stream.wait_event(self.ready)
+            self.cache.record_stream(stream)
+        return self.cache
 
 
 class State(enum.Enum):
@@ -223,12 +197,9 @@ class MonoTracker:
         self._last_t = None
         self._vel = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
         self._cache = np.zeros(0, np.int64)   # map point ids in the cache
-        # (ids, device cache, ref kf, Rk, tk, xyz, ready event, published
-        # by the worker)
-        self._snap = None
+        self._snap: Optional[Snapshot] = None
         self._snap_used = None   # the snapshot the last frame tracked
         self._carry = None    # framestep.FrameCarry on the device
-        self._no_pred = torch.as_tensor(pack_pred_np(), device=self.device)
         self.debug = {}
         self._cur_depth = None    # this frame's depth map (RGB-D)
         self.timer = StageTimer()
@@ -248,10 +219,9 @@ class MonoTracker:
         # localization-only: track against the frozen map, no KFs/mapping
         # (reference ActivateLocalizationMode)
         self.localization_only = False
-        # the captured frame step (CUDA only; made at the first tracked
-        # frame) and track_batch's staging slots, kept across reset()
-        self._graph: Optional[FrameStepGraph] = None
-        self._slots = None
+        # the frame step's trip to the device, made at the first tracked
+        # frame and kept across reset() (the graph is captured once)
+        self._stepper: Optional[FrameStepper] = None
 
         # async mapping (the reference's LocalMapping thread). The lock
         # guards the map's arrays; the mapping tail holds it while it
@@ -353,9 +323,9 @@ class MonoTracker:
             fid = self.frame_id
             if self._map_worker is not None:
                 self._map_queue.put(None)
-            keep = (self._map_lock, self._graph, self._slots)
+            keep = (self._map_lock, self._stepper)
             self._reinit()
-            self._map_lock, self._graph, self._slots = keep
+            self._map_lock, self._stepper = keep
             self.trajectory = traj
             self.frame_id = fid
 
@@ -421,9 +391,9 @@ class MonoTracker:
         t = np.array(t, np.float32)
         ref, R_r, t_r = -1, None, None
         snap = self._snap
-        if self.state == State.OK and snap is not None and snap[2] >= 0:
+        if self.state == State.OK and snap is not None and snap.ref_kf >= 0:
             # relative pose against the ref KF pose as tracked against
-            ref, Rk, tk = snap[2], snap[3], snap[4]
+            ref, Rk, tk = snap.ref_kf, snap.R_ref, snap.t_ref
             R_r = R @ Rk.T
             t_r = t - R_r @ tk
         self.trajectory.append(FrameRecord(ts=ts, R=R, t=t,
@@ -543,41 +513,30 @@ class MonoTracker:
         self._vel = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
 
     # ------------------------------------------------------------- main track
-    def _frame_graph(self) -> FrameStepGraph:
-        """The frame step captured for this tracker's shapes (CUDA only),
-        made at the first tracked frame and kept across reset()."""
-        if self._graph is None:
+    def _frame_stepper(self) -> FrameStepper:
+        """The frame step for this tracker's shapes, made at the first
+        tracked frame and kept across reset()."""
+        if self._stepper is None:
             cfg = self.cfg
-            self._graph = FrameStepGraph(
+            self._stepper = FrameStepper(
                 self.cam.height, self.cam.width, cfg.max_track, self.intr,
                 n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
                 min_align=cfg.min_align_points, remap_grid=self._remap,
-                device=self.device)
-        return self._graph
-
-    def _snap_cache(self, snap):
-        """The snapshot's device cache, ready on this thread's stream: a
-        snapshot the worker published on the mapping stream is waited for,
-        and its memory kept until this stream is done with it."""
-        dev, ready = snap[1], snap[6]
-        if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(ready)
-            dev.record_stream(stream)
-        return dev
+                device=self.device, pipeline_depth=cfg.pipeline_depth)
+        return self._stepper
 
     def _tracking_snapshot(self):
         """The snapshot the next frame step tracks against: a thin cache is
         rebuilt first while the mapper is idle (so tracking never waits on
         the tail); the first use of one the worker published calls
         _on_map_corrected."""
-        if (len(self._snap[0]) < self.cfg.cache_refill_below
+        if (len(self._snap.ids) < self.cfg.cache_refill_below
                 and self._tail_idle()):
             with self._locked():
                 self._join_mapper()
                 self._rebuild_cache()
         snap = self._snap
-        if snap[7] and snap is not self._snap_used:
+        if snap.from_worker and snap is not self._snap_used:
             self._on_map_corrected()
         self._snap_used = snap
         return snap
@@ -585,47 +544,32 @@ class MonoTracker:
     def _track_frame(self, img, ts):
         """Steady-state frame: one fused frame step on the device (a graph
         replay on the card) and ONE readback of its packed output."""
-        cfg = self.cfg
         # external pose prediction (mono-VI: IMU propagation); the step
         # falls back to its on-device velocity model otherwise
         pred = self._predict_pose()
-        pred_vec = self._no_pred if pred is None else \
+        pred_vec = None if pred is None else \
             self._t(pack_pred_np(pred[0], pred[1], True))
         snap = self._tracking_snapshot()
-        ids = snap[0]
         with self.timer.stage("frame_step"):
-            dev = self._snap_cache(snap)
-            if self.device.type == "cuda":
-                graph = self._frame_graph()
-                with self.timer.stage("frame_step.dispatch"):
-                    graph.load(self._carry, dev, pred_vec)
-                    packed = graph.step(torch.from_numpy(
-                        np.ascontiguousarray(img)))
-                self._carry = graph.carry
-                pyr_fn = _once(graph.carry.pyr.clone)
-            else:
-                with self.timer.stage("frame_step.dispatch"):
-                    self._carry, packed = frame_step(
-                        self._t(img), self._carry, dev, pred_vec,
-                        self._remap, self.intr, n_levels=cfg.n_levels,
-                        scale_factor=cfg.scale_factor,
-                        min_align=cfg.min_align_points)
-                pyr = self._carry.pyr
-                pyr_fn = lambda: pyr  # noqa: E731
+            cache = snap.ready_cache()
+            stepper = self._frame_stepper()
+            with self.timer.stage("frame_step.dispatch"):
+                self._carry, packed, pyr_fn = stepper.step(
+                    img, self._carry, cache, pred_vec)
             with self.timer.stage("frame_step.readback"):
                 packed = packed.cpu().numpy()
-            out = unpack_out(packed, cfg.max_track)
-        ok, R, t, _ = self._consume_out(out, ids, ts, pyr_fn,
-                                        snap_xyz=snap[5])
+            out = unpack_out(packed, self.cfg.max_track)
+        ok, R, t, _ = self._consume_out(out, snap.ids, ts, pyr_fn,
+                                        snap_xyz=snap.xyz)
         return ok, R, t
 
     # ----------------------------------------------------------- batch track
     def track_batch(self, imgs, timestamps):
         """Track consecutive frames in chunks of cfg.track_batch with
         cfg.pipeline_depth chunks in flight. A chunk is B frame steps
-        chained through the device carry (frame_step_batch; B graph replays
-        on the card), staged through pinned memory in one copy and read
-        back in one; chunk N+1 depends only on the carry and a cache
+        chained through the device carry (FrameStepper.step_batch; B graph
+        replays on the card), staged through pinned memory in one copy and
+        read back in one; chunk N+1 depends only on the carry and a cache
         snapshot, so it is dispatched before chunk N is consumed.
         Keyframe/mapping effects lag up to B - 1 frames in a chunk plus up
         to pipeline_depth - 1 chunks of snapshot (the reference's async
@@ -643,7 +587,7 @@ class MonoTracker:
         i = 0                  # first frame not yet consumed
         next_i = 0             # first frame not yet dispatched
         n_total = len(imgs)
-        inflight = []          # [(i0, snap, outs_fn, pyrs)], oldest first
+        inflight = []          # [(i0, snap, outs_fn, pyr_fns)], oldest first
 
         def can_batch(j):
             # the state and the predictor are read at dispatch time: with
@@ -655,9 +599,9 @@ class MonoTracker:
         def dispatch(j):
             snap = self._tracking_snapshot()
             t0 = time.perf_counter()
-            outs_fn, pyrs = self._dispatch_chunk(imgs[j: j + B], snap)
+            outs_fn, pyr_fns = self._dispatch_chunk(imgs[j: j + B], snap)
             self.timer.add("frame_step", time.perf_counter() - t0, count=0)
-            return (j, snap, outs_fn, pyrs)
+            return (j, snap, outs_fn, pyr_fns)
 
         while i < n_total or inflight:
             while len(inflight) < depth and can_batch(next_i):
@@ -669,7 +613,7 @@ class MonoTracker:
                 next_i = i
                 continue
 
-            i0, snap, outs_fn, pyrs = inflight.pop(0)
+            i0, snap, outs_fn, pyr_fns = inflight.pop(0)
             t0 = time.perf_counter()
             outs = outs_fn()          # ONE [B, packed] readback
             self.timer.add("frame_step", time.perf_counter() - t0, count=B)
@@ -680,9 +624,8 @@ class MonoTracker:
                 self._cur_depth = None
                 out_b = unpack_out(outs[b], cfg.max_track)
                 ok, R, t, clean = self._consume_out(
-                    out_b, snap[0], timestamps[i0 + b],
-                    _once(pyrs[b].clone), batch_mode=True,
-                    snap_xyz=snap[5])
+                    out_b, snap.ids, timestamps[i0 + b], pyr_fns[b],
+                    batch_mode=True, snap_xyz=snap.xyz)
                 self._log(timestamps[i0 + b], R, t)
                 results.append((self.state, R, t))
                 consumed += 1
@@ -701,37 +644,12 @@ class MonoTracker:
 
     def _dispatch_chunk(self, frames, snap):
         """Queue B frame steps from the current carry against `snap`.
-        Returns (a function giving the [B, packed] numpy outputs, the
-        frames' stacked pyramids [B, SH, W])."""
-        cfg = self.cfg
-        kw = dict(n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
-                  min_align=cfg.min_align_points)
-        dev = self._snap_cache(snap)
-        if self.device.type != "cuda":
-            imgs = self._t(np.stack([np.asarray(f) for f in frames]))
-            self._carry, outs, pyrs = frame_step_batch(
-                imgs, self._carry, dev, self._remap, self.intr, **kw)
-            return outs.numpy, pyrs
-        slot = self._batch_slot(len(frames), frames[0])
-        slot.stage(frames)
-        self._carry, _, pyrs = frame_step_batch(
-            slot.imgs, self._carry, dev, self._remap, self.intr,
-            graph=self._frame_graph(), out=(slot.outs, slot.pyrs), **kw)
-        return slot.read_back(), pyrs
-
-    def _batch_slot(self, B, frame):
-        """The next of pipeline_depth rotating staging slots (pinned frames,
-        device frames, outputs, pyramids); a chunk in flight owns one."""
-        graph = self._frame_graph()
-        # uint8 frames are staged as uint8, any other as float32 (the frame
-        # step casts to float32 first)
-        dtype = torch.uint8 if np.asarray(frame).dtype == np.uint8 \
-            else torch.float32
-        if self._slots is None or self._slots[0] != (B, dtype):
-            n = max(1, self.cfg.pipeline_depth)
-            self._slots = ((B, dtype), itertools.cycle(
-                [_ChunkSlot(B, graph, dtype) for _ in range(n)]))
-        return next(self._slots[1])
+        Returns (a function giving the [B, packed] numpy outputs, a
+        function per frame giving its stacked pyramid)."""
+        cache = snap.ready_cache()
+        self._carry, outs_fn, pyr_fns = self._frame_stepper().step_batch(
+            frames, self._carry, cache)
+        return outs_fn, pyr_fns
 
     def _consume_out(self, out, ids, ts, pyr_fn, batch_mode: bool = False,
                      snap_xyz=None):
@@ -946,11 +864,7 @@ class MonoTracker:
         self._publish_snapshot()
 
     def _publish_snapshot(self):
-        """Publish the snapshot the frame step tracks against (one attribute
-        write; the tracking thread reads it without the lock): cache ids,
-        device cache, reference KF and its pose, the cached points' world
-        positions, and an event after which the device cache is ready on
-        the publishing thread's stream (None on the CPU)."""
+        """Publish the Snapshot the frame step tracks against."""
         smap = self.map
         ref = self._last_kf
         if 0 <= ref < smap.n_kf:
@@ -958,9 +872,9 @@ class MonoTracker:
         else:
             ref, Rk, tk = -1, np.eye(3, dtype=np.float32), \
                 np.zeros(3, np.float32)
-        self._snap = (self._cache, self._cache_dev, ref, Rk, tk,
-                      self._cache_xyz_host, self._record_event(),
-                      threading.current_thread() is self._map_worker)
+        self._snap = Snapshot(self._cache, self._cache_dev, ref, Rk, tk,
+                              self._cache_xyz_host, self._record_event(),
+                              threading.current_thread() is self._map_worker)
 
     # ------------------------------------------------ feature-method fallbacks
     def _match_points_to_feats(self, pt_ids, R, t, f, radius, ratio=0.9,

@@ -120,7 +120,8 @@ def fast_score_map(img, threshold: float = 20.0):
     CUDA tensors run the hand-written kernel (counted in
     ``fast_score_map.launches``); CPU tensors run the plain version."""
     _check_args(img, "fast_score_map", threshold)
-    if img.device.type == "cuda":
+
+    def launch():
         if not img.is_contiguous():
             raise ValueError("fast_score_map needs a contiguous CUDA tensor")
         fn = cuda_build.function("fast_score", "ygz_fast_score",
@@ -133,9 +134,8 @@ def fast_score_map(img, threshold: float = 20.0):
                                    float(threshold), stream), "fast_score")
         cuda_build.count_launch(fast_score_map)
         return out
-    if img.device.type == "cpu":
-        return fast_score_map_torch(img, threshold)
-    raise ValueError(f"fast_score_map: unsupported device {img.device}")
+    return cuda_build.on_device("fast_score_map", (img,), launch,
+                                lambda: fast_score_map_torch(img, threshold))
 
 
 fast_score_map.launches = 0
@@ -172,7 +172,8 @@ def fast_corner_maps(stack, height: int, n_levels: int, th_hi: float,
     if total != stack.shape[0]:
         raise ValueError(f"stack has {stack.shape[0]} rows; {n_levels} "
                          f"levels of height {height} take {total}")
-    if stack.device.type == "cuda":
+
+    def launch():
         shapes = pyramid_shapes(height, w0, n_levels, scale_factor)
         ints = ctypes.c_int * n_levels
         p_int = ctypes.POINTER(ctypes.c_int)
@@ -188,9 +189,9 @@ def fast_corner_maps(stack, height: int, n_levels: int, th_hi: float,
                n_levels, float(th_hi), float(th_lo), stream), "fast_corners")
         cuda_build.count_launch(fast_corner_maps)
         return out
-    if stack.device.type == "cpu":
-        return fast_corner_maps_torch(stack, height, n_levels, th_hi, th_lo)
-    raise ValueError(f"fast_corner_maps: unsupported device {stack.device}")
+    return cuda_build.on_device(
+        "fast_corner_maps", (stack,), launch,
+        lambda: fast_corner_maps_torch(stack, height, n_levels, th_hi, th_lo))
 
 
 fast_corner_maps.launches = 0

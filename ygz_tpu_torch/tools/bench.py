@@ -136,17 +136,16 @@ def run_timed(frames, device, batch=BATCH, warm=WARM_FRAMES,
 def device_pipeline_fps(device, batch=BATCH, n_chunks=PIPELINE_CHUNKS):
     """The frame step alone at B = batch (pyramid, sparse alignment, direct
     tracking, the carry chain), no host bookkeeping: n_chunks chunks of
-    random frames against a 512-point cache, each chunk's outputs read one
-    chunk behind. On the card every frame is a FrameStepGraph replay, the
-    frames go up and the outputs come back through pinned memory without
-    blocking. Returns (fps, host launch calls of one chunk on the card,
-    None on the CPU)."""
+    random frames against a 512-point cache through a FrameStepper, each
+    chunk's outputs read one chunk behind. On the card every frame is a
+    graph replay, the frames go up and the outputs come back through the
+    stepper's pinned staging without blocking. Returns (fps, host launch
+    calls of one chunk on the card, None on the CPU)."""
     import torch
 
-    from ..frontend.framestep import (build_pyramid_stacked,
-                                      frame_step_batch, make_carry,
-                                      pack_cache_np)
-    from ..frontend.framestep_graph import FrameStepGraph
+    from ..frontend.framestep import build_pyramid_stacked, make_carry, \
+        pack_cache_np
+    from ..frontend.framestep_graph import FrameStepper
     from ..utils.profiling import launch_calls
 
     intr = (F, F, W / 2.0 - 0.5, H / 2.0 - 0.5)
@@ -165,44 +164,28 @@ def device_pipeline_fps(device, batch=BATCH, n_chunks=PIPELINE_CHUNKS):
         uv, np.zeros(cap, np.int32),
         np.tile(np.eye(3, dtype=np.float32), (cap, 1, 1)),
         np.zeros((cap, 3), np.float32)), device=device)
-    cuda = device.startswith("cuda")
-    host = torch.from_numpy(imgs)
-    if cuda:
-        host = host.pin_memory()
-    up = torch.empty(host.shape, dtype=host.dtype, device=device)
-    up.copy_(host)
-    pyr0 = build_pyramid_stacked(up[0], None, 4)
+    pyr0 = build_pyramid_stacked(torch.as_tensor(imgs[0], device=device),
+                                 None, 4)
     carry = make_carry(pyr0, np.eye(3), np.zeros(3), uv, X,
                        np.ones(cap, bool))
-    graph = FrameStepGraph(H, W, cap, intr, device=device) if cuda else None
+    stepper = FrameStepper(H, W, cap, intr, device=device)
 
     def chunk(carry):
-        up.copy_(host, non_blocking=True)
-        return frame_step_batch(up, carry, cache, None, intr, graph=graph)
+        return stepper.step_batch(imgs, carry, cache)
 
-    carry, outs, _ = chunk(carry)
-    sync(device)
-    # two pinned readback buffers: chunk k's lands while chunk k-1's is read
-    reads = [torch.empty(tuple(outs.shape), pin_memory=cuda)
-             for _ in range(2)]
-    done = [torch.cuda.Event() if cuda else None for _ in range(2)]
+    carry, outs_fn, _ = chunk(carry)
+    outs_fn()
     pending = None
     t0 = time.perf_counter()
-    for k in range(n_chunks):
-        carry, outs, _ = chunk(carry)
-        reads[k % 2].copy_(outs, non_blocking=cuda)
-        if cuda:
-            done[k % 2].record()
+    for _ in range(n_chunks):
+        carry, outs_fn, _ = chunk(carry)
         if pending is not None:          # consume one chunk behind
-            if cuda:
-                done[pending].synchronize()
-            _ = reads[pending].numpy().sum()
-        pending = k % 2
-    if cuda:
-        done[pending].synchronize()
-    _ = reads[pending].numpy().sum()
+            _ = pending().sum()
+        pending = outs_fn
+    _ = pending().sum()
     fps = n_chunks * batch / (time.perf_counter() - t0)
-    calls = launch_calls(lambda: chunk(carry)) if cuda else None
+    calls = (launch_calls(lambda: chunk(carry)) if device.startswith("cuda")
+             else None)
     return fps, calls
 
 

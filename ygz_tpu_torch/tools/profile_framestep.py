@@ -11,9 +11,10 @@ stage: host ms per call run eagerly (``<stage>_ms``, the JAX keys), and on
 the card the device ms per call as the sum of the stage's kernels and
 copies by ``torch.profiler`` (``device_ms``) and their count per call
 (``kernels``).
-Then the whole step at B = 8, replayed through ``FrameStepGraph`` on the
-card (eager on the CPU), in ms per frame. Writes the JSON to ``--out`` and a
-chrome trace of one replayed frame under ``build/ygz_tpu_torch/trace/``.
+Then the whole step at B = 8 through a ``FrameStepper`` (graph replays on
+the card, eager on the CPU), in ms per frame. Writes the JSON to ``--out``
+and a chrome trace of one replayed frame under
+``build/ygz_tpu_torch/trace/``.
 
     python -m ygz_tpu_torch.tools.profile_framestep [--device cpu]
 """
@@ -82,9 +83,8 @@ def main(argv=None):
 
     from ..backend.optim import pose_optimization
     from ..frontend.direct_tracker import track_local_map_direct
-    from ..frontend.framestep import (frame_step_batch, make_carry,
-                                      pack_cache_np)
-    from ..frontend.framestep_graph import FrameStepGraph
+    from ..frontend.framestep import make_carry, pack_cache_np
+    from ..frontend.framestep_graph import FrameStepper
     from ..frontend.sparse_align import sparse_image_align
     from ..ops.align import align2d, sample_patches
     from ..ops.image import build_pyramid
@@ -97,7 +97,7 @@ def main(argv=None):
         return torch.as_tensor(a, device=device)
 
     img = t(rng.uniform(0, 255, (h, w)).astype(np.float32))
-    imgs = t(rng.uniform(0, 255, (BATCH, h, w)).astype(np.uint8))
+    imgs = rng.uniform(0, 255, (BATCH, h, w)).astype(np.uint8)
     X = np.stack([rng.uniform(-2, 2, cap), rng.uniform(-1.5, 1.5, cap),
                   rng.uniform(4, 9, cap)], 1).astype(np.float32)
     uv = np.stack([intr[0] * X[:, 0] / X[:, 2] + intr[2],
@@ -139,11 +139,10 @@ def main(argv=None):
 
     carry = make_carry(pyr, np.eye(3), np.zeros(3), uv, X,
                        np.ones(cap, bool))
-    graph = FrameStepGraph(h, w, cap, intr, device=device) if cuda else None
+    stepper = FrameStepper(h, w, cap, intr, device=device)
 
     def chunk():
-        return frame_step_batch(imgs, carry, cache_packed, None, intr,
-                                graph=graph)
+        return stepper.step_batch(imgs, carry, cache_packed)
 
     res["frame_step_batch8_ms"] = host_ms(chunk, device, args.reps, warm=1)
     res["per_frame_ms"] = res["frame_step_batch8_ms"] / BATCH
@@ -159,8 +158,7 @@ def main(argv=None):
     trace = os.path.join(args.trace_dir, "framestep_trace.json")
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
-        frame_step_batch(imgs[:1], carry, cache_packed, None, intr,
-                         graph=graph)
+        stepper.step(imgs[0], carry, cache_packed)
         sync(device)
     prof.export_chrome_trace(trace)
     res["trace"] = trace

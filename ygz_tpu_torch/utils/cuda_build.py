@@ -127,3 +127,18 @@ def rows_arg(x, cols: int, dtype, name: str):
     if cols and x.stride(1) != 1:
         x = x.contiguous()
     return x, x.stride(0)
+
+
+def on_device(name: str, tensors, launch, plain=None):
+    """A kernel wrapper's device switch: ``launch()`` when ``tensors`` (None
+    entries skipped) are on a CUDA device, the plain version ``plain()``
+    on the CPU. Another device, or the CPU without a plain version, raises
+    "<name>: unsupported device <dev>"; tensors on two devices raise
+    "<name>: inputs on different devices" (both ValueError)."""
+    tensors = [x for x in tensors if x is not None]
+    dev = tensors[0].device
+    if dev.type != "cuda" and (dev.type != "cpu" or plain is None):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if any(x.device != dev for x in tensors):
+        raise ValueError(f"{name}: inputs on different devices")
+    return launch() if dev.type == "cuda" else plain()
