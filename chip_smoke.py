@@ -1595,7 +1595,7 @@ def check_graph_vs_eager(system, frames, profiled=True):
 
     tr = system.tracker
     stepper = tr._stepper
-    graph = stepper.graph
+    graph = _a_graph(stepper)
     cap = tr.cfg.max_track
     cache = tr._snap.ready_cache()
     start = FrameCarry(*(a.clone() for a in graph.carry))
@@ -1851,11 +1851,11 @@ def record_step_calls(system, img):
               sparse_align.sparse_image_align.launches,
               direct_tracker.direct_align.launches)
     try:
-        carry = framestep.FrameCarry(
-            *(a.clone() for a in stepper.graph.carry))
+        graph = _a_graph(stepper)
+        carry = framestep.FrameCarry(*(a.clone() for a in graph.carry))
         framestep.frame_step(torch.as_tensor(img, device="cuda"), carry,
                              tr._snap.ready_cache(), stepper.no_pred,
-                             stepper.graph.remap, tr.intr)
+                             graph.remap, tr.intr)
         torch.cuda.synchronize()
     finally:
         (direct_tracker.pose_optimization, framestep.sparse_image_align,
@@ -1864,6 +1864,13 @@ def record_step_calls(system, img):
                 sparse_align.sparse_image_align.launches - before[1],
                 direct_tracker.direct_align.launches - before[2])
     return calls["pose"], calls["align"], calls["direct"], launches
+
+
+def _a_graph(stepper):
+    """A captured graph of the stepper: the per-frame one, else the chunk
+    path's (a tracker that only ran track_batch)."""
+    return stepper.graph if stepper.graph is not None else \
+        stepper.batch_graph
 
 
 def gn_kernel_names(system, frames):
@@ -1876,7 +1883,7 @@ def gn_kernel_names(system, frames):
     from ygz_tpu_torch.utils.profiling import device_events
 
     tr = system.tracker
-    graph = tr._stepper.graph
+    graph = _a_graph(tr._stepper)
     saved = FrameCarry(*(a.clone() for a in graph.carry))
     graph.load(None, tr._snap.ready_cache(), tr._stepper.no_pred)
     imgs = iter(frames)

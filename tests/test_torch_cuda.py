@@ -23,6 +23,7 @@ from torch_gn_cases import POSE_CASES as POSE_GN_CASES
 from torch_gn_cases import align_points as gn_align_points
 from torch_gn_cases import plane_frames as gn_plane_frames
 from torch_gn_cases import pose_problem as gn_pose_problem
+from torch_gn_cases import singular
 from torch_parity import render_u8
 
 # the main path's pyramid levels (EuRoC 752x480, 4 levels, factor 2) and
@@ -371,12 +372,13 @@ def test_batched_path_on_the_card_matches_the_cpu(cuda):
         out = system.track_monocular_batch(frames, stamps)
         states.append([name for name, _ in out])
         if dev is cuda:
-            assert system.tracker._stepper.graph.replays >= 24
+            assert system.tracker._stepper.batch_graph.replays >= 24
     assert states[0] == states[1], states
     assert states[0][-1] == "OK"
 
 
 CAPTURE_FAILS = """
+import numpy as np
 import torch
 from ygz_tpu_torch.frontend import framestep_graph
 real = framestep_graph.frame_step
@@ -389,7 +391,8 @@ def syncing_step(*args, **kw):
 
 framestep_graph.frame_step = syncing_step
 try:
-    framestep_graph.FrameStepper(120, 160, 64, (100.0, 100.0, 79.5, 59.5))
+    framestep_graph.FrameStepGraph(120, 160, 64, (100.0, 100.0, 79.5, 59.5),
+                                   frame_dtype=np.uint8)
 except RuntimeError as e:
     print("capture refused:", str(e).splitlines()[0])
     raise SystemExit(3)
@@ -480,10 +483,10 @@ def test_frame_stepper_chunk_on_the_card_matches_eager_steps(cuda):
         carry, packed = frame_step(torch.as_tensor(img, device=cuda), carry,
                                    cache, stepper.no_pred, None, tr.intr)
         eager.append((unpack_out(packed.cpu().numpy(), cap), carry.pyr))
-    replays = stepper.graph.replays
+    assert stepper.batch_graph is None     # captured at the first chunk
     last, outs_fn, pyr_fns = stepper.step_batch(chunk, start, cache)
     outs = outs_fn()
-    assert stepper.graph.replays == replays + len(chunk)
+    assert stepper.batch_graph.replays == len(chunk)
     assert outs.shape[0] == len(pyr_fns) == len(chunk)
     for b, (a, pyr) in enumerate(eager):
         got = unpack_out(outs[b], cap)
@@ -493,6 +496,143 @@ def test_frame_stepper_chunk_on_the_card_matches_eager_steps(cuda):
         assert np.array_equal(got.visible, a.visible)
         torch.testing.assert_close(pyr_fns[b](), pyr)
     torch.testing.assert_close(last.state, carry.state, rtol=0, atol=1e-5)
+
+
+def _tracked_stepper(cuda, n_frames):
+    """A System tracked over the sweep's first 12 frames, a fresh
+    FrameStepper at its tracker's shapes, and the frames."""
+    from ygz_tpu_torch.frontend.framestep_graph import FrameStepper
+    from ygz_tpu_torch.system import Sensor, System
+
+    cam, frames = _sweep_frames(n_frames)
+    system = System(cam, Sensor.MONOCULAR)
+    for i, img in enumerate(frames[:12]):
+        system.track_monocular(img, i * 0.05)
+    tr = system.tracker
+    assert tr.state.name == "OK"
+    cfg = tr.cfg
+    stepper = FrameStepper(cam.height, cam.width, cfg.max_track, tr.intr,
+                           n_levels=cfg.n_levels,
+                           scale_factor=cfg.scale_factor,
+                           min_align=cfg.min_align_points,
+                           remap_grid=tr._remap, device=cuda)
+    return tr, stepper, frames
+
+
+@pytest.mark.cuda
+def test_frame_stepper_per_frame_crossing_matches_eager_steps(cuda):
+    """FrameStepper.step on the card (the per-frame graph: pinned frame,
+    upload and readback inside the replay, loads only when due) against
+    eager frame_step calls over 12 frames, from the same carry: the cache
+    changes after the sixth frame (a second snapshot, half its points
+    dropped), a prediction is given on frames 2, 3 and 8. Poses within
+    1e-5, tracked and visible masks equal, the output a fresh array."""
+    from ygz_tpu_torch.frontend.framestep import (FrameCarry, frame_step,
+                                                  pack_pred_np, unpack_out)
+
+    tr, stepper, frames = _tracked_stepper(cuda, 24)
+    cap = tr.cfg.max_track
+    first = tr._snap.cache
+    second = first.clone()
+    second[::2] = 0.0                          # every other point invalid
+    start = FrameCarry(*(a.clone() for a in tr._carry))
+    carry_e, carry_s = FrameCarry(*(a.clone() for a in start)), start
+    R_pred = None
+    outs = []
+    for k, img in enumerate(frames[12:24]):
+        cache = first if k < 6 else second
+        pred = (pack_pred_np(R_pred[0], R_pred[1], True)
+                if k in (2, 3, 8) else None)
+        pred_t = stepper.no_pred if pred is None else torch.as_tensor(
+            pred, device=cuda)
+        carry_e, packed = frame_step(torch.as_tensor(img, device=cuda),
+                                     carry_e, cache, pred_t, tr._remap,
+                                     tr.intr)
+        carry_s, out_fn, _ = stepper.step(img, carry_s, cache, pred)
+        got = out_fn()
+        outs.append(got)
+        a = unpack_out(packed.cpu().numpy(), cap)
+        b = unpack_out(got, cap)
+        np.testing.assert_allclose(b.R, a.R, atol=1e-5, err_msg=str(k))
+        np.testing.assert_allclose(b.t, a.t, atol=1e-5, err_msg=str(k))
+        assert np.array_equal(a.tracked, b.tracked), k
+        assert np.array_equal(a.visible, b.visible), k
+        assert a.n_inliers > (100 if k < 6 else 30), k
+        R_pred = (a.R, a.t)
+    assert stepper.graph.replays == 12
+    # each output is its own array: the pinned buffer is the next replay's
+    assert not np.shares_memory(outs[0], outs[1])
+    assert not np.array_equal(outs[0], outs[-1])
+
+
+@pytest.mark.cuda
+def test_a_steady_frame_is_one_replay_and_no_copy(cuda):
+    """A steady frame through FrameStepper.step (the snapshot loaded
+    already, no prediction now or on the frame before) makes one
+    cudaGraphLaunch and no other launch or copy on the host
+    (torch.profiler's runtime records); a frame with a new snapshot and a
+    prediction copies both."""
+    from torch.profiler import ProfilerActivity, profile
+    from ygz_tpu_torch.frontend.framestep import pack_pred_np
+    from ygz_tpu_torch.utils.profiling import LAUNCH_CALLS
+
+    tr, stepper, frames = _tracked_stepper(cuda, 16)
+    cache = tr._snap.cache
+    carry = tr._carry
+    for img in frames[12:14]:
+        carry, out_fn, _ = stepper.step(img, carry, cache)
+        out_fn()
+
+    def calls(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.name.startswith(LAUNCH_CALLS)]
+
+    def frame(img, cache, pred=None):
+        nonlocal carry
+        carry, out_fn, _ = stepper.step(img, carry, cache, pred)
+        out_fn()
+
+    steady = calls(lambda: frame(frames[14], cache))
+    assert steady == ["cudaGraphLaunch"], steady
+    other = cache.clone()
+    busy = calls(lambda: frame(frames[15], other,
+                               pack_pred_np(np.eye(3), np.zeros(3), True)))
+    assert busy.count("cudaGraphLaunch") == 1, busy
+    assert sum(n.startswith("cudaMemcpy") for n in busy) == 2, busy
+
+
+@pytest.mark.cuda
+def test_cache_load_counts_the_frames_whose_snapshot_changed(cuda):
+    """Tracking 40 frames (keyframes, cache refills): the tracker's stage
+    frame_step.cache_load counts exactly the tracked frames whose
+    snapshot's cache is another tensor than the frame before's (the first
+    tracked frame included), and some frames load none."""
+    from ygz_tpu_torch.system import Sensor, System
+
+    cam, frames = _sweep_frames(40)
+    system = System(cam, Sensor.MONOCULAR)
+    tr = system.tracker
+    seen = []
+    real = tr._tracking_snapshot
+
+    def spy():
+        snap = real()
+        seen.append(snap.cache)
+        return snap
+    tr._tracking_snapshot = spy
+    for i, img in enumerate(frames):
+        system.track_monocular(img, i * 0.05)
+    assert tr.state.name == "OK" and len(seen) > 30
+    changed = sum(1 for k, c in enumerate(seen)
+                  if k == 0 or c is not seen[k - 1])
+    assert tr.timer.count["frame_step.cache_load"] == changed
+    assert tr.timer.count["frame_step"] == len(seen)
+    assert 1 < changed < len(seen), (changed, len(seen))
+    print(f"cache loads: {changed} of {len(seen)} tracked frames")
 
 
 @pytest.mark.cuda
@@ -665,7 +805,7 @@ def test_pose_gn_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     g_inl, w_inl = got.inliers.cpu().numpy(), want.inliers.cpu().numpy()
     assert int(got.n_inliers) == int(g_inl.sum())
-    if case == "no_valid":
+    if case == "no_valid" or singular(spec):
         # H = 0: non-finite steps in both, no inlier
         assert not torch.isfinite(got.R).all()
         assert not torch.isfinite(want.R).all()
@@ -713,7 +853,7 @@ def test_gn_kernels_repeat_bit_for_bit(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _align_inputs(dev, seed, border, no_valid=False):
+def _align_inputs(dev, seed, border, no_valid=False, n=512):
     """The plane frames' pyramids (the reference's levels as views of a
     stacked buffer, as the frame step passes the carry's) and the case's
     points, on `dev`."""
@@ -721,7 +861,7 @@ def _align_inputs(dev, seed, border, no_valid=False):
                                          unstack_pyramid)
 
     scene, I0, I1, _ = _plane_frames()
-    uv0, valid = gn_align_points(seed, border)
+    uv0, valid = gn_align_points(seed, border, n)
     if no_valid:
         valid[:] = False
     X = scene.backproject(np.eye(3), np.zeros(3), uv0).astype(np.float32)
@@ -769,7 +909,7 @@ def test_sparse_align_kernel_matches_plain(cuda, case):
     # a point on a border line may flip its visibility
     assert abs(int(got.n_meas) - int(want.n_meas)) <= 2
     assert abs(float(got.mean_res) - float(want.mean_res)) < 1e-3
-    assert int(got.n_meas) > 300
+    assert int(got.n_meas) > 300 * uv0.shape[0] // 512
 
 
 @pytest.mark.cuda

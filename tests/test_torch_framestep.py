@@ -115,7 +115,8 @@ def test_frame_step_matches_jax_over_frames(sequence):
 
 def test_frame_stepper_runs_the_eager_steps_on_the_cpu(sequence):
     """FrameStepper on the CPU: its per-frame call is frame_step (with and
-    without a prediction) and its chunk call frame_step_batch, bit for bit,
+    without a prediction, the output read back through the function it
+    returns) and its chunk call frame_step_batch, bit for bit,
     with the frames' pyramids kept through its functions; a tracker's
     reset() keeps its stepper."""
     from ygz_tpu_torch.frontend.framestep_graph import FrameStepper
@@ -138,8 +139,8 @@ def test_frame_stepper_runs_the_eager_steps_on_the_cpu(sequence):
             want_c, want = tfs.frame_step(
                 torch.as_tensor(img), want_c, cache_t,
                 t_(tfs.pack_pred_np()) if pred is None else pred, None, intr)
-            got_c, got, pyr_fn = stepper.step(img, got_c, cache_t, pred)
-            assert torch.equal(got, want)
+            got_c, out_fn, pyr_fn = stepper.step(img, got_c, cache_t, pred)
+            np.testing.assert_array_equal(out_fn(), np_(want))
             assert all(torch.equal(a, b) for a, b in zip(got_c, want_c))
             assert torch.equal(pyr_fn(), want_c.pyr)
             assert pyr_fn() is pyr_fn()
@@ -156,3 +157,37 @@ def test_frame_stepper_runs_the_eager_steps_on_the_cpu(sequence):
     kept = tr._frame_stepper()
     tr.reset()
     assert tr._stepper is kept and tr._frame_stepper() is kept
+
+
+def test_static_loads_copy_a_snapshot_and_a_prediction_only_when_due():
+    """The per-frame graph's load bookkeeping: a snapshot's cache loads
+    once however many frames track it, a new snapshot loads, a cache whose
+    tensor was freed and whose memory came back as a new cache (possibly
+    at the same address) loads; the prediction loads on the first frame,
+    on every frame that gives one and on the first frame after."""
+    from ygz_tpu_torch.frontend.framestep_graph import StaticLoads
+
+    loads = StaticLoads()
+    a = torch.zeros(CAP, tfs.CACHE_COLS)
+    assert loads.cache_changed(a)
+    assert not loads.cache_changed(a)
+    assert not loads.cache_changed(a)
+    b = torch.zeros(CAP, tfs.CACHE_COLS)
+    assert loads.cache_changed(b)
+    assert not loads.cache_changed(b)
+    # the kept reference is what makes identity safe: drop every other
+    # reference to b and allocate caches of its size until one reuses its
+    # storage or a few have been tried; each is a new snapshot
+    addr = b.data_ptr()
+    del b
+    for _ in range(8):
+        c = torch.zeros(CAP, tfs.CACHE_COLS)
+        assert loads.cache_changed(c)
+        if c.data_ptr() == addr:
+            break
+        del c
+    fresh = StaticLoads()
+    assert fresh.pred_needed(False)            # zeros in a fresh graph
+    assert [fresh.pred_needed(g) for g in
+            (False, False, True, True, False, False, True, False)] == \
+        [False, False, True, True, True, False, True, True]

@@ -26,7 +26,7 @@ from ygz_tpu_torch.ops import image as timage
 
 from torch_gn_cases import (ALIGN_CASES, BF, H0, INTR, NO_VALID, POSE_CASES,
                             R_TRUE, W0, align_points, plane_frames,
-                            pose_problem)
+                            pose_problem, singular)
 from torch_parity import agree, assert_close, np_, rot_angle_deg, t_
 
 
@@ -55,6 +55,12 @@ def test_pose_gn_edge_cases_match_jax(case):
     p = pose_problem(**spec)
     rj, rt = _run_pose(p, kw)
     inl_j, inl_t = np.asarray(rj.inliers), np_(rt.inliers)
+    if singular(spec):
+        # H = 0: non-finite steps in both packages, no inlier
+        assert not bool(torch.isfinite(rt.R).all())
+        assert not np.isfinite(np.asarray(rj.R)).all()
+        assert int(rt.n_inliers) == int(rj.n_inliers) == 0
+        return
     if spec["n"] == 1:
         # one row fixes 2 of 6 degrees of freedom: the solve is rank-
         # deficient (the 1e-8 regulariser vanishes beside the scaled unit

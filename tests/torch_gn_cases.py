@@ -4,9 +4,11 @@ of the kernels against their plain versions (test_torch_cuda.py). No JAX
 here: the card tests import this without it.
 
 Each case is made with numpy from a seed: stereo rows, one row, a ragged
-1,500 rows, points behind the camera, the PnP polish's gate, no valid row;
-two 752x480 views of a textured plane with points inside, on the level
-borders, or none valid.
+1,500 rows, points behind the camera, the PnP polish's gate, 512 mono rows
+(the frame step's shape), 333 rows (not a multiple of a kernel's block),
+every row behind the camera (H = 0: a singular system), no valid row; two
+752x480 views of a textured plane with points inside, on the level
+borders, 333 of them, or none valid.
 """
 import numpy as np
 
@@ -70,7 +72,17 @@ POSE_CASES = {
                    dict(chi2_th=CHI2_MONO)),
     "stereo_gate_9.21": (dict(seed=5, n=256, stereo=True),
                          dict(chi2_th=9.21)),
+    "mono_512": (dict(seed=12, n=512), {}),
+    "ragged_333": (dict(seed=13, n=333), {}),
+    # every weight 0 (z < 0): H = 0, a singular system
+    "all_behind_singular": (dict(seed=14, n=64, behind=64), {}),
 }
+
+
+def singular(spec):
+    """Whether a pose case's normal equations are 0 (every row behind the
+    camera): both versions then give non-finite steps and no inlier."""
+    return spec.get("behind", 0) >= spec["n"]
 
 
 # pose_problem's keywords of the no-valid-row case
@@ -106,6 +118,7 @@ def border_points(rng, n):
 ALIGN_CASES = {
     "levels_2_1_iters_3": dict(seed=8, border=False),
     "level_borders": dict(seed=9, border=True),
+    "ragged_333": dict(seed=15, border=False, n=333),
 }
 
 

@@ -1,21 +1,34 @@
 // Device helpers shared by the one-launch Gauss-Newton kernels (pose_gn.cu,
-// sparse_align.cu): the fixed-order block sum of the normal equations, the
-// Jacobi-preconditioned partial-pivot LU solve of a 6x6 system and the SE(3)
-// exponential. Each repeats the float operations of its plain PyTorch
+// sparse_align.cu): the one-barrier GN step (the normal equations' sums
+// over the block or the cluster, the Jacobi-preconditioned partial-pivot LU
+// solve of the 6x6 system in every warp, the SE(3) exponential) and the
+// SE(3) helpers. Each repeats the float operations of its plain PyTorch
 // counterpart (backend/optim.py::solve_preconditioned, geometry/lie.py::
 // se3_exp and se3_mul) in float32; sums run in another order than on the
 // CPU, so results agree with the plain versions to float32 rounding, and a
 // launch repeats bit for bit (no atomics, one summation order).
+//
+// A GN step's time is a chain of latencies, not bytes or operations. The
+// step here has one barrier: each warp reduce-scatters its 27 sums (a
+// butterfly of 31 shuffles leaves lane L with the warp's sum L), the warps
+// (of every block of a cluster) hand their sums over shared memory across
+// one barrier, and every warp adds them in one fixed order, so every warp
+// holds the same H and b bit for bit. Every warp then solves (the scaling
+// spread over its lanes, the elimination in every lane's registers) and
+// takes the exponential itself; the pose stays in every thread's
+// registers, with no second barrier and no broadcast.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace gn {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+namespace cg = cooperative_groups;
+
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int NH = 21;            // upper triangle of the 6x6 H, row-major
 constexpr int NSUM = NH + 6;      // ... then the 6 entries of b
 
@@ -44,115 +57,235 @@ __device__ __forceinline__ void add_row(float (&acc)[NSUM], const float* aw,
   for (int i = 0; i < 6; ++i) acc[NH + i] += aw[i] * r;
 }
 
-// Sum K per-thread values over the block in one fixed order: a shuffle tree
-// in each warp, then the warps' sums in warp order by the first K threads.
-// On return out[0..K) (shared) holds the sums, visible to warp 0 only;
-// `scratch` holds WARPS * K floats of shared memory. Every thread calls it.
-template <int K>
-__device__ void block_sum(float (&acc)[K], float* scratch, float* out) {
-  static_assert(K <= 32, "one lane of warp 0 per sum");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One stage of the butterfly: a lane keeps one half of its first 2H values
+// (the upper where lane bit H is set) and adds its partner's copy of it.
+template <int H>
+__device__ __forceinline__ void scatter_stage(float (&v)[32], int lane) {
+  const bool up = (lane & H) != 0;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) scratch[warp * K + k] = v;
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, H);
   }
-  __syncthreads();
-  if (threadIdx.x < K) {
-    float s = scratch[threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) s += scratch[w * K + threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-  __syncwarp();
+  if constexpr (H > 1) scatter_stage<H / 2>(v, lane);
 }
 
-// x = solve_preconditioned(H + reg * trace(H) / 6 * I, b) from the block
-// sums s (NSUM: H's upper triangle, then b). Jacobi scaling by
-// sqrt(clamp(diag, 1e-12)), then LU with partial pivoting as LAPACK's getrf
-// (the first largest |pivot|; a zero pivot leaves its column unscaled) and
-// the two triangular solves of getrs: a singular system gives non-finite
-// steps, as torch.linalg.solve_ex does, and nothing is raised.
-__device__ void solve6(const float* s, float reg, float* x) {
-  float A[6][6], y[6], d[6];
-  int k = 0;
+// The butterfly reduce-scatter of a warp: lane L returns the sum over the
+// warp's lanes of acc[L] (0 for L >= NSUM), in one fixed order, by five
+// stages of halving (31 shuffles in all).
+__device__ __forceinline__ float warp_reduce_scatter(const float (&acc)[NSUM]) {
+  float v[32];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int k = 0; k < NSUM; ++k) v[k] = acc[k];
 #pragma unroll
-    for (int j = i; j < 6; ++j) {
-      A[i][j] = s[k];
-      A[j][i] = s[k];
-      ++k;
+  for (int k = NSUM; k < 32; ++k) v[k] = 0.0f;
+  scatter_stage<16>(v, threadIdx.x & 31);
+  return v[0];
+}
+
+// p[0] <- the sum of p[0 .. 2H) by a fixed pairwise tree
+template <int H>
+__device__ __forceinline__ void tree_sum(float* p) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) p[i] = p[i] + p[i + H];
+  if constexpr (H > 1) tree_sum<H / 2>(p);
+}
+
+// 32-bit shared-memory addresses and the Hopper cluster primitives the
+// combine below uses (PTX: mapa, st.async, mbarrier)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// The sums of a step over the warps of the block, or of every block of a
+// cluster of `nblocks` (at most MAXB) blocks, across one barrier: every
+// lane L of every warp gets the L-th total, bit for bit the same in every
+// warp (the parts are added in (block, warp) order by a fixed tree).
+// `part` is the block's shared float[2 * MAXB * WARPS * 32] and `bar` its
+// shared uint64_t[2]; steps use their halves in turn. One block: each warp
+// writes its part, __syncthreads. A cluster: each warp pushes its part
+// into every block's `part` with st.async, which counts the bytes on that
+// block's mbarrier, and each block waits on its own mbarrier for all of
+// them (no cluster barrier and no memory fence in the step). Two halves
+// suffice: a part for step k + 2 can only be sent by a warp past step
+// k + 1's wait, which needs every warp's step k + 1 part, each sent after
+// that warp read its step k parts.
+template <int WARPS, int MAXB>
+struct Combine {
+  static_assert(((WARPS * MAXB) & (WARPS * MAXB - 1)) == 0,
+                "a power-of-two tree of parts");
+  float* part;
+  unsigned long long* bar;
+  int nblocks;
+  int phase;
+
+  __device__ Combine(float* part_, unsigned long long* bar_, int nblocks_)
+      : part(part_), bar(bar_), nblocks(nblocks_), phase(0) {}
+
+  __device__ bool clustered() const { return MAXB > 1 && nblocks > 1; }
+
+  // Every thread calls it once, before the first step.
+  __device__ void init() {
+    if (!clustered()) return;
+    if (threadIdx.x == 0) {
+      for (int h = 0; h < 2; ++h)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     :: "r"(smem_addr(bar + h)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
+    cg::this_cluster().sync();
   }
-  float tr = A[0][0];
+
+  __device__ float operator()(float v) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int h = phase & 1;
+    const uint32_t parity = (phase >> 1) & 1;
+    ++phase;
+    float* half = part + h * MAXB * WARPS * 32;
+    if (clustered()) {
+      const int rank = blockIdx.x;    // the grid is one cluster
+      const uint32_t dst = smem_addr(half + (rank * WARPS + warp) * 32 + lane);
+      const uint32_t mbar = smem_addr(bar + h);
+      if (threadIdx.x == 0)
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+            :: "r"(mbar), "r"(nblocks * WARPS * 32 * 4) : "memory");
 #pragma unroll
-  for (int i = 1; i < 6; ++i) tr += A[i][i];
+      for (int b = 0; b < MAXB; ++b) {
+        if (b < nblocks)
+          asm volatile(
+              "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32"
+              " [%0], %1, [%2];"
+              :: "r"(map_rank(dst, b)), "f"(v), "r"(map_rank(mbar, b))
+              : "memory");
+      }
+      uint32_t done = 0;
+      while (!done)
+        asm volatile(
+            "{ .reg .pred p;"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+            " selp.u32 %0, 1, 0, p; }"
+            : "=r"(done) : "r"(mbar), "r"(parity) : "memory");
+    } else {
+      half[warp * 32 + lane] = v;
+      __syncthreads();
+    }
+    float p[WARPS * MAXB];
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b) {
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        p[b * WARPS + w] = b < nblocks ? half[(b * WARPS + w) * 32 + lane]
+                                       : 0.0f;
+    }
+    tree_sum<WARPS * MAXB / 2>(p);
+    return p[0];
+  }
+
+  // Before a block of a cluster exits: no other block still sends to it.
+  __device__ void finish() const {
+    if (clustered()) cg::this_cluster().sync();
+  }
+};
+
+// The index of H[i][j], i <= j, in the upper triangle (row-major)
+__device__ __forceinline__ int tri(int i, int j) {
+  return i * 6 - (i * (i - 1)) / 2 + (j - i);
+}
+
+// x = solve_preconditioned(H + reg * trace(H) / 6 * I, b) by one warp, every
+// lane ending with all of x; lane L < NSUM holds the L-th sum s (H's upper
+// triangle, then b). The Jacobi scaling by sqrt(clamp(diag, 1e-12)) is
+// spread over the lanes (lane L scales its own sum); every lane then takes
+// the 27 scaled sums and runs, in its own registers, the LU with partial
+// pivoting of LAPACK's getrf on the augmented [A | y]: the first largest
+// |pivot| at or below the diagonal (a NaN is never larger), the rows
+// swapped by selects, the column below scaled by the pivot's reciprocal
+// (getf2's scal; a zero pivot leaves it unscaled); then the back
+// substitution by the same reciprocals. A singular system gives non-finite
+// steps, as torch.linalg.solve_ex does, and nothing is raised. No shuffle
+// and no divergent branch lies on the elimination's chain.
+__device__ void solve6(float s, float reg, float (&x)[6]) {
+  const int lane = threadIdx.x & 31;
+  float tr = __shfl_sync(FULL, s, tri(0, 0));
+#pragma unroll
+  for (int i = 1; i < 6; ++i) tr += __shfl_sync(FULL, s, tri(i, i));
   const float add = reg * tr / 6.0f;
+  // lane i < 6: the scale d_i of row and column i
+  const int li = lane < 6 ? lane : 0;
+  const float dl =
+      sqrtf(max_nan(__shfl_sync(FULL, s, tri(li, li)) + add, 1e-12f));
+  // lane L: the entry H[i][j] (L < NH) or b[i] (L >= NH) it holds, scaled
+  const int i = (lane >= 6) + (lane >= 11) + (lane >= 15) + (lane >= 18)
+                + (lane >= 20);
+  const int j = min(lane - tri(i, i) + i, 5);
+  const bool rhs = lane >= NH;
+  const int bi = min(max(lane - NH, 0), 5);
+  const float di = __shfl_sync(FULL, dl, rhs ? bi : i);
+  const float dj = __shfl_sync(FULL, dl, j);
+  const float e = rhs ? s / di : (i == j ? s + add : s) / (di * dj);
+  float A[6][7];
+  {
+    int k = 0;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    A[i][i] += add;
-    d[i] = sqrtf(max_nan(A[i][i], 1e-12f));
+    for (int r = 0; r < 6; ++r) {
+#pragma unroll
+      for (int c = r; c < 6; ++c) {
+        A[r][c] = __shfl_sync(FULL, e, k++);
+        A[c][r] = A[r][c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 6; ++r) A[r][6] = __shfl_sync(FULL, e, NH + r);
   }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-#pragma unroll
-    for (int j = 0; j < 6; ++j) A[i][j] = A[i][j] / (d[i] * d[j]);
-    y[i] = s[NH + i] / d[i];
-  }
-  int perm[6] = {0, 1, 2, 3, 4, 5};
+  float inv[6];
 #pragma unroll
   for (int c = 0; c < 6; ++c) {
-    int p = c;
     float best = fabsf(A[c][c]);
+    int p = c;
 #pragma unroll
     for (int r = c + 1; r < 6; ++r) {
-      if (fabsf(A[r][c]) > best) {
-        best = fabsf(A[r][c]);
-        p = r;
-      }
-    }
-    if (p != c) {
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        const float tmp = A[c][j];
-        A[c][j] = A[p][j];
-        A[p][j] = tmp;
-      }
-      const int tp = perm[c];
-      perm[c] = perm[p];
-      perm[p] = tp;
-    }
-    if (A[c][c] != 0.0f) {
-#pragma unroll
-      for (int r = c + 1; r < 6; ++r) A[r][c] = A[r][c] / A[c][c];
+      const float a = fabsf(A[r][c]);
+      p = a > best ? r : p;
+      best = a > best ? a : best;
     }
 #pragma unroll
     for (int r = c + 1; r < 6; ++r) {
+      const bool sw = p == r;
 #pragma unroll
-      for (int j = c + 1; j < 6; ++j) A[r][j] -= A[r][c] * A[c][j];
+      for (int k = c; k < 7; ++k) {
+        const float t = A[c][k];
+        A[c][k] = sw ? A[r][k] : t;
+        A[r][k] = sw ? t : A[r][k];
+      }
+    }
+    const float piv = A[c][c];
+    const float rcp = 1.0f / piv;
+    inv[c] = rcp;
+#pragma unroll
+    for (int r = c + 1; r < 6; ++r) {
+      const float l = piv != 0.0f ? A[r][c] * rcp : A[r][c];
+#pragma unroll
+      for (int k = c + 1; k < 7; ++k) A[r][k] -= l * A[c][k];
     }
   }
-  float z[6];
+  float w[6];   // U w = z, from the last row up
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {   // L z = P y (unit lower triangle)
-    float v = y[perm[i]];
+  for (int r = 5; r >= 0; --r) {
+    float v = A[r][6];
 #pragma unroll
-    for (int j = 0; j < i; ++j) v -= A[i][j] * z[j];
-    z[i] = v;
+    for (int k = r + 1; k < 6; ++k) v -= A[r][k] * w[k];
+    w[r] = v * inv[r];
   }
 #pragma unroll
-  for (int i = 5; i >= 0; --i) {  // U w = z
-    float v = z[i];
-#pragma unroll
-    for (int j = i + 1; j < 6; ++j) v -= A[i][j] * z[j];
-    z[i] = v / A[i][i];
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) x[i] = z[i] / d[i];
+  for (int r = 0; r < 6; ++r) x[r] = w[r] / __shfl_sync(FULL, dl, r);
 }
 
 // geometry/lie.py::se3_exp of xi = [upsilon, omega], with its small-angle
@@ -202,24 +335,29 @@ __device__ void se3_mul(const float* Ra, const float* ta, const float* Rb,
   }
 }
 
-// One Gauss-Newton update by thread 0 from the block sums s: the step
-// solve(H + reg, b), exp(-step), composed on the left of the pose
-// (pose <- exp(-step) * pose) or on its right (pose <- pose * exp(-step)).
-__device__ void gn_update(const float* s, float reg, bool left,
-                          float* pose /* R 9 | t 3, shared */) {
+// One Gauss-Newton step from this thread's partial sums acc: the step
+// solve(H + reg, b) over the block's (or cluster's) sums, exp(-step),
+// composed on the left of the pose (P <- exp(-step) * P) or on its right
+// (P <- P * exp(-step)). Every thread of the block calls it, with the same
+// P (R 9 | t 3, in registers), and every thread ends with the same new P.
+template <int WARPS, int MAXB>
+__device__ void gn_step(Combine<WARPS, MAXB>& combine,
+                        const float (&acc)[NSUM], float reg, bool left,
+                        float (&P)[12]) {
+  const float s = combine(warp_reduce_scatter(acc));
   float x[6], Rd[9], td[3], R[9], t[3];
   solve6(s, reg, x);
 #pragma unroll
   for (int i = 0; i < 6; ++i) x[i] = -x[i];
   se3_exp(x, Rd, td);
   if (left)
-    se3_mul(Rd, td, pose, pose + 9, R, t);
+    se3_mul(Rd, td, P, P + 9, R, t);
   else
-    se3_mul(pose, pose + 9, Rd, td, R, t);
+    se3_mul(P, P + 9, Rd, td, R, t);
 #pragma unroll
-  for (int k = 0; k < 9; ++k) pose[k] = R[k];
+  for (int k = 0; k < 9; ++k) P[k] = R[k];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) pose[9 + k] = t[k];
+  for (int k = 0; k < 3; ++k) P[9 + k] = t[k];
 }
 
 }  // namespace gn

@@ -192,14 +192,13 @@ def _sparse_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr, R_init, t_init,
     i = ctypes.c_int
     fn = cuda_build.function(
         "sparse_align", "ygz_sparse_align",
-        [p, i, p, i, p, i, i, p, p, p, p, p, i, p, p, i, p, p, p, p, p, p])
-    # the kernel owns its scratch layout and its level limit
-    scratch_floats = cuda_build.function(
-        "sparse_align", "ygz_sparse_align_scratch_floats", [i, i])(N, n_lv)
-    if scratch_floats < 0:
+        [p, i, p, i, p, i, i, p, p, p, p, p, i, p, p, i, p, p, p, p, p])
+    # the kernel owns its level limit
+    max_levels = cuda_build.function(
+        "sparse_align", "ygz_sparse_align_max_levels", [])()
+    if n_lv > max_levels:
         raise ValueError(f"sparse_image_align: {n_lv} levels is more than "
                          f"the kernel takes")
-    scratch = torch.empty(scratch_floats, dtype=f32, device=dev)
     R = torch.empty((3, 3), dtype=f32, device=dev)
     t = torch.empty(3, dtype=f32, device=dev)
     n_meas = torch.empty((), dtype=torch.int64, device=dev)
@@ -209,7 +208,7 @@ def _sparse_align(ref_pyr, cur_pyr, uv0, X_ref, valid, intr, R_init, t_init,
         uv0.data_ptr(), suv, X_ref.data_ptr(), sx, valid.data_ptr(), sval, N,
         ptrs(*ref_ptrs), ints(*ref_hws), ptrs(*cur_ptrs), ints(*cur_hws),
         floats(*lv_intr), n_lv, R_init.data_ptr(), t_init.data_ptr(),
-        int(iters), scratch.data_ptr(), R.data_ptr(), t.data_ptr(),
+        int(iters), R.data_ptr(), t.data_ptr(),
         n_meas.data_ptr(), mean_res.data_ptr(), stream), "sparse_align")
     cuda_build.count_launch(sparse_image_align)
     return SparseAlignResult(R=R, t=t, n_meas=n_meas, mean_res=mean_res)

@@ -27,6 +27,7 @@ overrides them.
 from __future__ import annotations
 
 import enum
+import functools
 import os
 import queue
 import threading
@@ -525,6 +526,13 @@ class MonoTracker:
                 device=self.device, pipeline_depth=cfg.pipeline_depth)
         return self._stepper
 
+    def _load_cache(self, snap):
+        """snap's cache ready for the frame step to copy: the stepper calls
+        this only on a frame that loads a new cache, so the stage
+        frame_step.cache_load counts one a copy."""
+        with self.timer.stage("frame_step.cache_load"):
+            return snap.ready_cache()
+
     def _tracking_snapshot(self):
         """The snapshot the next frame step tracks against: a thin cache is
         rebuilt first while the mapper is idle (so tracking never waits on
@@ -548,16 +556,16 @@ class MonoTracker:
         # falls back to its on-device velocity model otherwise
         pred = self._predict_pose()
         pred_vec = None if pred is None else \
-            self._t(pack_pred_np(pred[0], pred[1], True))
+            pack_pred_np(pred[0], pred[1], True)
         snap = self._tracking_snapshot()
         with self.timer.stage("frame_step"):
-            cache = snap.ready_cache()
             stepper = self._frame_stepper()
             with self.timer.stage("frame_step.dispatch"):
-                self._carry, packed, pyr_fn = stepper.step(
-                    img, self._carry, cache, pred_vec)
+                self._carry, out_fn, pyr_fn = stepper.step(
+                    img, self._carry, snap.cache, pred_vec,
+                    ready_cache=functools.partial(self._load_cache, snap))
             with self.timer.stage("frame_step.readback"):
-                packed = packed.cpu().numpy()
+                packed = out_fn()
             out = unpack_out(packed, self.cfg.max_track)
         ok, R, t, _ = self._consume_out(out, snap.ids, ts, pyr_fn,
                                         snap_xyz=snap.xyz)

@@ -2,7 +2,9 @@
 
 Each ``ygz_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a
 into ``build/ygz_tpu_torch/`` at the repository root (git-ignored) on first
-use, and loaded with ``ctypes``. The library file name carries a hash of
+use, and loaded with ``ctypes`` (``CDLL``, which releases Python's
+interpreter lock during each call; ``PyDLL`` for an entry that must keep
+it). The library file name carries a hash of
 the source and of the shared headers (``csrc/*.cuh``), so an edited kernel
 is rebuilt and a stale one is never loaded. Nothing here runs at import
 time; a missing toolchain raises.
@@ -24,7 +26,7 @@ BUILD_DIR = _PKG.parent / "build" / "ygz_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, bool], ctypes.CDLL] = {}
 # launch counts are bumped from the tracking and the mapping threads
 _count_lock = threading.Lock()
 
@@ -78,20 +80,25 @@ def build_all(verbose: bool = False) -> list[Path]:
         return list(pool.map(lambda n: build(n, verbose), names))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu (built on first use)."""
-    lib = _loaded.get(name)
+def load(name: str, hold_gil: bool = False) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (built on first use); with
+    hold_gil, loaded as a ctypes.PyDLL, whose calls keep the interpreter
+    lock."""
+    lib = _loaded.get((name, hold_gil))
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _loaded[name] = lib
+        kind = ctypes.PyDLL if hold_gil else ctypes.CDLL
+        lib = kind(str(build(name)))
+        _loaded[(name, hold_gil)] = lib
     return lib
 
 
-def function(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
+def function(name: str, entry: str, argtypes,
+             hold_gil: bool = False) -> ctypes._CFuncPtr:
     """The C entry `entry` of csrc/<name>.cu with its argument types set
     (ctypes.c_void_p for every pointer and the stream) and an int return:
-    the cudaGetLastError() right after the launch."""
-    fn = getattr(load(name), entry)
+    the cudaGetLastError() right after the launch, or the CUDA call's own
+    error code. hold_gil: the call keeps the interpreter lock (load)."""
+    fn = getattr(load(name, hold_gil), entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -100,6 +107,11 @@ def function(name: str, entry: str, argtypes) -> ctypes._CFuncPtr:
 def check_launch(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def check_call(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
 def count_launch(wrapper) -> None:
